@@ -1,25 +1,35 @@
 #!/usr/bin/env python
-"""Smoke run of the PyTorch/CUDA port on one card: build, check, serve.
+"""Smoke run of the PyTorch/CUDA port on one card: build, check, train, serve.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # everything, as below
+    python3 chip_smoke.py --k34      # build, then only the K3/K4 checks
 
 1. Environment: torch/CUDA versions, the card's name and power limit.
-2. Kernels: builds every CUDA kernel of the serving path from ``csrc/``
-   (one nvcc per source, started together) and holds each against its plain
-   PyTorch twin on the card at full width, each output against its own
-   tolerance: K1 (decode loop) in bf16 and f32, B=1 and B=4, at S=64 with
-   200 forced steps, prenet dropout off and on, and at the serve phase's
-   S=32 with 600 forced steps; K2 (STFT -> mel -> log) on a 3 s and a 2 s
-   synthetic wav.  Times the kernel, the twin and, for K2, one library call
-   (``torch.stft`` + mel product).
-3. Serve: a full-width ``Synthesizer`` with random weights from a fixed seed
+2. Kernels: builds every CUDA kernel of the port from ``csrc/`` (one nvcc
+   per source, started together) and holds each against its plain PyTorch
+   twin on the card at full width, each output against its own tolerance:
+   K1 (decode loop) in bf16 and f32, B=1 and B=4, at S=64 with 200 forced
+   steps, prenet dropout off and on, and at the serve phase's S=32 with 600
+   forced steps; K2 (STFT -> mel -> log) on a 3 s and a 2 s synthetic wav;
+   K3 and K4 (teacher-forced recurrence forward and backward) at B=64,
+   S=128, T=512 and at B=6, S=77, T=45 with masked rows, in bf16 and f32,
+   recurrent dropout off and on: every output, and every gradient of the
+   recurrence through K4 against the same gradients through the twin.
+   Times each kernel, its twin and, for K2, one library call.
+3. Train: 11 ``make_train_step`` steps on a fixed full-width batch (B=64,
+   S=128, T=512, bf16) with random weights from the seed (ms/step, mel
+   frames/s, peak memory; the loss must fall), then the real entry point
+   ``training.train.train`` on a synthetic corpus of 128 + 16 clips through
+   a validation, a checkpoint and a resume.  K2, K3 and K4 must launch.
+4. Serve: a full-width ``Synthesizer`` with random weights from a fixed seed
    (gate bias set low, so every request decodes the full 600 steps),
    centroids from a synthetic manifest, then ``synthesize`` with a reference
    wav, ``synthesize`` with ratios, ``interpolate``, and ``synthesize_batch``
-   of 4 requests.  The kernels' launch counters are zeroed just before and
-   read just after; each kernel must have launched.
+   of 4 requests.
 
-Prints one JSON line per request, the ``kernels`` JSON line, and last
+Every launch counter is zeroed just before its path runs and read just
+after; each kernel must have launched.  Prints one JSON line per check,
+train phase and request, the card line, the ``kernels`` JSON line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure and when
 no CUDA card is present.  Long logs go to ``chiprun_out/``.
 """
@@ -264,6 +274,335 @@ def kernels_phase(model, hp, device):
     return report, rows
 
 
+# ------------------------------------------------- K3 / K4 (recurrence)
+
+# (B, S, T, memory lengths): the full-width training shape, the largest for
+# which the JAX package's auto rule engaged its TPU kernels
+# (decoder_bptt.py:727-733), and a small one with masked rows and odd sizes
+K34_CASES = ((64, 128, 512, None), (6, 77, 45, (77, 70, 61, 50, 33, 9)))
+K34_EARLY = 2
+# Limits on max |kernel - twin| / max |twin| per output (PERF.md gives the
+# measured errors and those of planted faults): "early" over the first
+# K34_EARLY forward steps / the last K34_EARLY reverse steps, "run" over the
+# whole call and for every gradient.  In bf16 a sum-order difference can
+# flip a rounding of an LSTM input or a stored gate from step 0 on: outputs
+# stored in bf16 (g_*, dg_*, dloc) get one bf16 ulp (2^-7) early, and
+# outputs downstream of such flips (the decoder LSTM's h and c, dpn) a
+# looser early limit than those that are not (attention, h_att, dctx).
+K34_TOL = {"float32": {"early": 1e-5, "run": 2e-5},
+           "bfloat16": {"early": {"h_att": 1e-4, "c_att_prev": 1e-4, "ctx": 1e-4, "w": 1e-4,
+                                  "dctx": 1e-4, "h_dec": 1e-3, "c_dec_prev": 1e-3,
+                                  "dpn": 4e-3, "stream": 2 ** -7},
+                        "run": 2e-2}}
+K3_OUT = ("h_dec", "ctx", "w", "g_att", "g_dec", "c_att_prev", "c_dec_prev", "h_att")
+K4_STREAMS = ("dg_att", "dg_dec", "dpn", "dctx", "dloc")
+K4_ACC = ("dv", "dWq", "dWld", "dpmem")
+GRADS = ("attn_w", "attn_b", "dec_w", "dec_b", "query_w", "loc_w", "loc_dense_w", "v",
+         "prenet_seq", "memory", "pmem")
+
+
+def rel_err(got, want, steps=None):
+    """max |got - want| / max |want|, over the time steps ``steps`` (a slice)
+    of (T, ...) tensors when given."""
+    g, w = got.float(), want.float()
+    if steps is not None:
+        g, w = g[steps], w[steps]
+    return float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+
+
+def k34_inputs(dec, B, S, T, lengths, dtype, dropout_on, device):
+    import numpy as np
+    import torch
+    from tacotron2_vae_torch.models import decoder_bptt as bp
+    from tacotron2_vae_torch.ops import teacher_fwd as tf
+    from tacotron2_vae_torch.ops.layers import linear
+
+    rng = np.random.RandomState(SEED + B * 1000 + S)
+    hp = dec.hp
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(device)
+
+    w = tf.pack(bp.scan_params(dec), dtype)
+    memory = rand(B, S, hp.encoder_embedding_dim, scale=0.3)
+    pmem = linear(memory, dec.attention_layer.memory_layer.linear_layer.weight).contiguous()
+    prenet = torch.relu(rand(T, B, hp.prenet_dim))
+    lens = torch.tensor(lengths or (S,) * B, device=device)
+    add = torch.where(torch.arange(S, device=device)[None] < lens[:, None], 0.0,
+                      float(np.finfo(np.float32).min)).contiguous()
+    masks = None
+    if dropout_on:
+        g = torch.Generator(device=device).manual_seed(SEED)
+        masks = tuple(bp.dropout_masks(T, B, hp.attention_rnn_dim, 0.9, dtype, g, device)
+                      for _ in range(4))
+    dys = (rand(T, B, hp.decoder_rnn_dim, scale=0.1), rand(T, B, hp.encoder_embedding_dim,
+                                                           scale=0.1), rand(T, B, S, scale=0.1))
+    return w, prenet, memory, pmem, add, masks, dys
+
+
+def k3_bound(w, B, S, T, dtype_name, masks):
+    """Least time of one K3 call: the LSTM products at the peak of the
+    stream dtype plus the float32 attention at the float32 peak, against
+    every input read once and every output written once."""
+    Ka, H4 = w["attn_w"].shape
+    Kd = w["dec_w"].shape[0]
+    H, (A, E) = H4 // 4, (w["query_w"].shape[1], Kd - 2 * (H4 // 4))
+    K, _, F = w["loc_w"].shape
+    P = Ka - E - H
+    itemsize = 2 if dtype_name == "bfloat16" else 4
+    lstm = 2.0 * T * B * (Ka + Kd) * H4
+    att = 2.0 * T * B * (H * A + S * (2 * K * F + F * A + A + E))
+    weights = sum(t.numel() * t.element_size() for t in w.values())
+    io = 4 * (T * B * P + B * S * (E + A + 1))
+    io += 4 * T * B * H * itemsize if masks is not None else 0
+    out = 4 * T * B * (4 * H + E + S) + 2 * T * B * H4 * itemsize
+    t_ops = lstm / PEAK[dtype_name] + att / PEAK["float32"]
+    t_bytes = (weights + io + out) / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def k4_bound(w, B, S, T, dtype_name, masks):
+    """Least time of one K4 call, counted as ``k3_bound`` does: the two dx
+    products, the attention recompute and its backward."""
+    Ka, H4 = w["attn_w"].shape
+    Kd = w["dec_w"].shape[0]
+    H, (A, E) = H4 // 4, (w["query_w"].shape[1], Kd - 2 * (H4 // 4))
+    K, _, F = w["loc_w"].shape
+    P = Ka - E - H
+    itemsize = 2 if dtype_name == "bfloat16" else 4
+    lstm = 2.0 * T * B * (Ka + Kd) * H4
+    att = 2.0 * T * B * (2 * H * A + S * (4 * K * F + 3 * F * A + 3 * A + 2 * E))
+    weights = sum(t.numel() * t.element_size() for t in w.values())
+    io = 4 * (B * S * (E + A) + T * B * (H + E + S)                  # memory, pmem, dys
+              + T * B * (3 * H + 2 * S)) + 2 * T * B * H4 * itemsize  # resids, w seqs
+    io += 4 * T * B * H * itemsize if masks is not None else 0
+    out = (2 * T * B * H4 + T * B * S * F) * itemsize + 4 * (T * B * (P + E) + B * S * A
+                                                             + H * A + F * A + A)
+    t_ops = lstm / PEAK[dtype_name] + att / PEAK["float32"]
+    t_bytes = (weights + io + out) / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def k34_check(dec, B, S, T, lengths, dtype_name, dropout_on, device, timed):
+    """K3 and K4 against their twins on one input, and every gradient of
+    the recurrence through K4 against the same gradients through the twin."""
+    import torch
+    from tacotron2_vae_torch.models import decoder_bptt as bp
+    from tacotron2_vae_torch.ops import teacher_fwd as tf
+
+    dtype = getattr(torch, dtype_name)
+    w, pn, mem, pm, add, masks, dys = k34_inputs(dec, B, S, T, lengths, dtype, dropout_on,
+                                                 device)
+    tol = K34_TOL[dtype_name]
+    row = {"kernel": "K3+K4", "dtype": dtype_name, "B": B, "S": S, "T": T,
+           "dropout": dropout_on, "fails": []}
+    ys_k, res_k = tf.teacher_fwd(w, pn, mem, pm, add, masks)
+    ys_t, res_t = tf.teacher_fwd_plain(w, pn, mem, pm, add, masks)
+    torch.cuda.synchronize()
+    early = slice(0, K34_EARLY)
+    def early_limit(name):
+        if not isinstance(tol["early"], dict):
+            return tol["early"]
+        return tol["early"].get(name, tol["early"]["stream"])
+
+    for name, g, t in zip(K3_OUT, (*ys_k, *res_k), (*ys_t, *res_t)):
+        lim = early_limit(name)
+        row[f"K3_{name}"] = [rel_err(g, t, early), rel_err(g, t)]
+        if not (row[f"K3_{name}"][0] <= lim and row[f"K3_{name}"][1] <= tol["run"]
+                and bool(torch.isfinite(g).all())):
+            row["fails"].append(f"K3_{name}")
+
+    # K4 and the weight gradients, both from the twin's forward
+    zero = torch.zeros_like(ys_t[2][:1])
+    w_cum_prev = torch.cat([zero, torch.cumsum(ys_t[2], 0)[:-1]]).contiguous()
+    bwd_args = (w, mem, pm, masks, dys, ys_t, res_t, w_cum_prev)
+    out_k = tf.teacher_bwd(*bwd_args)
+    out_t = tf.teacher_bwd_plain(*bwd_args)
+    torch.cuda.synchronize()
+    late = slice(T - K34_EARLY, T)
+    for name, g, t in zip(K4_STREAMS + K4_ACC, out_k, out_t):
+        stream = name in K4_STREAMS
+        lim = early_limit(name)
+        errs = [rel_err(g, t, late) if stream else None, rel_err(g, t)]
+        row[f"K4_{name}"] = errs
+        if not ((errs[0] is None or errs[0] <= lim) and errs[1] <= tol["run"]
+                and bool(torch.isfinite(g).all())):
+            row["fails"].append(f"K4_{name}")
+    grads = (bp.scan_backward(w, pn, mem, pm, masks, ys_t, res_t, dys),
+             bp.scan_backward(w, pn, mem, pm, masks, ys_t, res_t, dys,
+                              bwd=tf.teacher_bwd_plain))
+    for name, g, t in zip(GRADS, *grads):
+        row[f"grad_{name}"] = rel_err(g, t)
+        if not row[f"grad_{name}"] <= tol["run"]:
+            row["fails"].append(f"grad_{name}")
+    row["K3_max_abs_err"] = max(float((a.float() - b.float()).abs().max())
+                                for a, b in zip((*ys_k, *res_k), (*ys_t, *res_t)))
+    row["K4_max_abs_err"] = max(float((a.float() - b.float()).abs().max())
+                                for a, b in zip(out_k, out_t))
+    if timed:
+        row["K3_ms"] = cuda_ms(lambda: tf.teacher_fwd(w, pn, mem, pm, add, masks), 3)
+        row["K3_plain_ms"] = cuda_ms(lambda: tf.teacher_fwd_plain(w, pn, mem, pm, add, masks), 1)
+        row["K4_ms"] = cuda_ms(lambda: tf.teacher_bwd(*bwd_args), 3)
+        row["K4_plain_ms"] = cuda_ms(lambda: tf.teacher_bwd_plain(*bwd_args), 1)
+        row["K3_bound_ms"], row["K3_bound_by"] = k3_bound(w, B, S, T, dtype_name, masks)
+        row["K4_bound_ms"], row["K4_bound_by"] = k4_bound(w, B, S, T, dtype_name, masks)
+    return row
+
+
+def k34_phase(model, device):
+    """K3 and K4 against their twins at every case, dtype and dropout
+    setting; the bf16 full-width case with dropout is timed."""
+    rows, failed = [], []
+    report = {}
+    for B, S, T, lengths in K34_CASES:
+        for dtype_name in ("bfloat16", "float32"):
+            for dropout_on in (False, True):
+                timed = B == K34_CASES[0][0] and dtype_name == "bfloat16" and dropout_on
+                row = k34_check(model.decoder, B, S, T, lengths, dtype_name, dropout_on,
+                                device, timed)
+                print(json.dumps(row), flush=True)
+                rows.append(row)
+                failed += [row] if row["fails"] else []
+                if timed:
+                    report["row"] = row
+                for k in ("K3", "K4"):
+                    report[k] = max(report.get(k, 0.0), row[f"{k}_max_abs_err"])
+    if failed:
+        raise AssertionError(f"{len(failed)} K3/K4 check(s) disagree with the twins: "
+                             f"{[(r['dtype'], r['B'], r['dropout'], r['fails']) for r in failed]}")
+    return report, rows
+
+
+# ------------------------------------------------------------------- train
+
+TRAIN_SHAPE = (64, 128, 512)   # B, S, T of the steady-state steps
+TRAIN_STEPS = 10               # timed steps after one warm-up step
+KO_TEXTS = ["안녕하세요. 오늘은 날씨가 참 좋네요.", "감사합니다, 다음에 또 만나요.",
+            "반갑습니다, 만나서 정말 기뻐요.", "내일 아침에 다시 연락드릴게요.",
+            "이 문장은 학습용 합성 데이터입니다.", "바람이 불고 비가 내리는 저녁이에요."]
+
+
+def fixed_batch(hp, device):
+    """A full-width batch from the seed: random tokens, a smooth random
+    log-mel (a learnable target), lengths below the padded sizes."""
+    import numpy as np
+    import torch
+
+    B, S, T = TRAIN_SHAPE
+    rng = np.random.RandomState(SEED)
+    in_lens = np.sort(S - rng.randint(0, S // 4, B))[::-1].copy()
+    out_lens = T - rng.randint(0, T // 8, B)
+    freq = np.linspace(0, 1, hp.n_mel_channels)[None, :, None]
+    time_ = np.linspace(0, 8 * np.pi, T)[None, None, :]
+    mel = (-4 + 2 * np.sin(time_ * (1 + rng.rand(B, 1, 1)) + 6 * freq)
+           + 0.1 * rng.randn(B, hp.n_mel_channels, T)).astype(np.float32)
+    mel *= np.arange(T)[None, None, :] < out_lens[:, None, None]
+    gate = (np.arange(T)[None, :] >= out_lens[:, None] - 1).astype(np.float32)
+    batch = {"text": rng.randint(1, hp.n_symbols, (B, S)), "input_lengths": in_lens,
+             "mel": mel, "output_lengths": out_lens, "gate": gate,
+             "emotions": np.eye(hp.n_emotions, dtype=np.float32)[rng.randint(0, 4, B)]}
+    return {k: torch.as_tensor(v).to(device, torch.long if v.dtype.kind == "i" else torch.float32)
+            for k, v in batch.items()}
+
+
+def steady_steps(hp, device):
+    """``make_train_step`` on one fixed full-width batch: ms per step by
+    CUDA events, mel frames per second, peak device memory; the loss and
+    the gradient norm must stay finite and the loss fall."""
+    import torch
+    from tacotron2_vae_torch.ops import teacher_fwd as tf
+    from tacotron2_vae_torch.training.train_state import create_train_state, make_train_step
+
+    ts = create_train_state(hp, device, seed=SEED)
+    step = make_train_step(hp)
+    batch = fixed_batch(hp, device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tf.teacher_fwd.launches = tf.teacher_bwd.launches = 0
+    metrics, times = [], []
+    for i in range(TRAIN_STEPS + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics.append(step(ts, batch, gen))
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    launches = {"K3": tf.teacher_fwd.launches, "K4": tf.teacher_bwd.launches}
+    B, S, T = TRAIN_SHAPE
+    ms = sum(times[1:]) / TRAIN_STEPS
+    row = {"phase": "train_steady", "B": B, "S": S, "T": T, "steps": TRAIN_STEPS,
+           "ms_per_step": ms, "ms_per_step_each": times, "mel_frames_per_s": B * T / ms * 1e3,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss": [m["loss"] for m in metrics], "grad_norm": [m["grad_norm"] for m in metrics],
+           "launches": launches}
+    print(json.dumps(row), flush=True)
+    losses = row["loss"]
+    if not all(math.isfinite(v) for v in losses + row["grad_norm"]):
+        raise AssertionError(f"non-finite loss or grad norm: {losses} {row['grad_norm']}")
+    if not (all(m["updated"] for m in metrics) and losses[-1] < losses[0]):
+        raise AssertionError(f"the loss did not fall over {len(losses)} steps: {losses}")
+    if launches["K3"] != TRAIN_STEPS + 1 or launches["K4"] != TRAIN_STEPS + 1:
+        raise AssertionError(f"the train steps did not run through K3/K4: {launches}")
+    return row
+
+
+def write_corpus(tmp, n, rng, name):
+    """``n`` 16 kHz wavs of 2-6 s with Korean texts and a filelist."""
+    path = os.path.join(tmp, f"{name}.txt")
+    with open(path, "w", encoding="utf-8") as f:
+        for i in range(n):
+            wav = os.path.join(tmp, f"{name}{i}.wav")
+            write_wav(wav, 2.0 + 4.0 * rng.rand(), 110 + 5 * (i % 60), rng)
+            f.write(f"{wav}|{KO_TEXTS[i % len(KO_TEXTS)]}|0|{i % 4}\n")
+    return path
+
+
+def train_entry(hp, device, tmp):
+    """The real entry point ``training.train.train`` on a synthetic corpus
+    (128 training and 16 validation clips, B=64): two epochs with one
+    validation and checkpoint at iteration 2, mels featurised per clip by
+    K2 (no cache); then a resume from that checkpoint (``-c``) with the mel
+    cache warmed in bulk, which continues at iteration 3 and checkpoints at
+    4 and 6.  K2, K3 and K4 must all launch."""
+    import numpy as np
+    from tacotron2_vae_torch.ops import stft_mel as sm
+    from tacotron2_vae_torch.ops import teacher_fwd as tf
+    from tacotron2_vae_torch.training import train as tr
+
+    rng = np.random.RandomState(SEED)
+    hp2 = hp.replace(training_files=write_corpus(tmp, 128, rng, "train"),
+                     validation_files=write_corpus(tmp, 16, rng, "val"),
+                     batch_size=64, epochs=2, iters_per_checkpoint=2, mel_cache=False)
+    out = os.path.join(tmp, "out")
+    sm.mel_spectrogram_fused.launches = 0
+    tf.teacher_fwd.launches = tf.teacher_bwd.launches = 0
+    t0 = time.perf_counter()
+    _, it = tr.train(out, "logs", None, False, hp2, device=str(device))
+    ckpt = os.path.join(out, "checkpoint_2")
+    _, it2 = tr.train(out, "logs", ckpt, False, hp2.replace(epochs=3, mel_cache=True),
+                      device=str(device))
+    wall = time.perf_counter() - t0
+    launches = {"K2": sm.mel_spectrogram_fused.launches, "K3": tf.teacher_fwd.launches,
+                "K4": tf.teacher_bwd.launches}
+    with open(os.path.join(out, "logs", "metrics.csv")) as f:
+        iters = [int(line.split(",")[0]) for line in f.readlines()[1:]]
+    with open(os.path.join(out, "logs", "val_metrics.csv")) as f:
+        val = [line.strip().split(",") for line in f.readlines()[1:]]
+    row = {"phase": "train_entry", "iterations": iters, "validations": val, "end": [it, it2],
+           "checkpoints": sorted(os.listdir(out)), "wall_s": wall, "launches": launches}
+    print(json.dumps(row), flush=True)
+    if iters != [0, 1, 2, 3, 3, 4, 5, 6] or [v[0] for v in val] != ["2", "4", "6"]:
+        raise AssertionError(f"train/resume iterations wrong: {iters}, validations {val}")
+    if not all(math.isfinite(float(x)) for v in val for x in v[1:]):
+        raise AssertionError(f"non-finite validation loss: {val}")
+    if not all(os.path.exists(os.path.join(out, f"checkpoint_{i}")) for i in (2, 4, 6)):
+        raise AssertionError(f"missing checkpoints: {row['checkpoints']}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"train() did not run through K2/K3/K4: {launches}")
+    return row
+
+
 # ------------------------------------------------------------------- serve
 
 
@@ -380,7 +719,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} | {card}", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     t0 = time.perf_counter()
-    logs = _build.build(["decoder_loop", "stft_mel"], verbose=True)
+    logs = _build.build(["decoder_loop", "stft_mel", "teacher_fwd", "teacher_bwd"],
+                        verbose=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         for name, log in logs.items():
             f.write(f"== {name}\n{log}\n")
@@ -389,19 +729,38 @@ def main() -> int:
     device = torch.device("cuda")
     hp = create_hparams()
     model = random_model(hp, device)
+    if "--k34" in sys.argv[1:]:  # the recurrence kernels' checks alone
+        k34_phase(model, device)
+        return 0
     report, rows = kernels_phase(model, hp, device)
+    k34, k34_rows = k34_phase(model, device)
+    steady = steady_steps(hp, device)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        entry = train_entry(hp, device, tmp)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         results, launches = serve_phase(model, hp, device, tmp)
+    launches.update({k: entry["launches"][k] for k in ("K3", "K4")})
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernel_checks": rows, "requests": results,
-                   "launches": launches}, f, indent=1)
+        json.dump({"card": card, "kernel_checks": rows + k34_rows, "requests": results,
+                   "train": [steady, entry], "launches": launches}, f, indent=1)
 
+    t = k34["row"]
+    report["K3"] = {"max_abs_err": k34["K3"], "ms": t["K3_ms"], "plain_ms": t["K3_plain_ms"],
+                    "bound_ms": t["K3_bound_ms"], "bound_by": t["K3_bound_by"]}
+    report["K4"] = {"max_abs_err": k34["K4"], "ms": t["K4_ms"], "plain_ms": t["K4_plain_ms"],
+                    "bound_ms": t["K4_bound_ms"], "bound_by": t["K4_bound_by"]}
     meta = {
         "K1": ("decode_loop", "tacotron2_vae_torch/csrc/decoder_loop.cu",
                "tacotron2_vae_tpu/ops/pallas/decoder_loop.py:112 (_kernel), "
                ":408 (_kernel_batched)"),
         "K2": ("stft_mel", "tacotron2_vae_torch/csrc/stft_mel.cu",
                "tacotron2_vae_tpu/ops/pallas/stft_mel.py:31 (_kernel)"),
+        "K3": ("teacher_fwd", "tacotron2_vae_torch/csrc/teacher_fwd.cu",
+               "tacotron2_vae_tpu/ops/pallas/teacher_fwd.py:75 (_kernel)"),
+        "K4": ("teacher_bwd", "tacotron2_vae_torch/csrc/teacher_bwd.cu",
+               "tacotron2_vae_tpu/ops/pallas/teacher_fwd.py:306 (_bwd_kernel)"),
     }
     kernels = []
     for key, (name, source, replaces) in meta.items():

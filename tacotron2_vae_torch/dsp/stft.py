@@ -76,11 +76,18 @@ def dynamic_range_decompression(x, C: float = 1.0):
 
 
 class TacotronSTFT:
-    """Waveform -> log-mel spectrogram (reference layers.py:54-92 API)."""
+    """Waveform -> log-mel spectrogram (reference layers.py:54-92 API).
+
+    Runs on the card by default (``device=None`` is ``"cuda"``) and raises
+    without one unless ``device="cpu"`` is passed."""
 
     def __init__(self, filter_length=1024, hop_length=256, win_length=1024,
                  n_mel_channels=80, sampling_rate=22050, mel_fmin=0.0,
-                 mel_fmax=8000.0, device="cpu"):
+                 mel_fmax=8000.0, device=None):
+        self.device = torch.device(device or "cuda")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("TacotronSTFT runs on a CUDA card and none is "
+                               "available; pass device='cpu' to run on the CPU")
         self.filter_length = filter_length
         self.hop_length = hop_length
         self.win_length = win_length
@@ -88,7 +95,6 @@ class TacotronSTFT:
         self.sampling_rate = sampling_rate
         self.mel_fmin = mel_fmin
         self.mel_fmax = mel_fmax
-        self.device = torch.device(device)
         self.mel_basis = torch.from_numpy(mel_filterbank(
             sampling_rate, filter_length, n_mel_channels, mel_fmin, mel_fmax
         )).to(self.device)

@@ -1,11 +1,13 @@
 """Autoregressive attention decoder (location-sensitive attention + 2 LSTMs).
 
 Counterpart of the JAX package's ``models/decoder.py`` (reference
-``Decoder``/``Attention``/``LocationLayer``/``Prenet``, model.py:12-464),
-inference only.  State_dict names follow the reference: ``prenet.layers.{i}``,
-``attention_rnn``, ``attention_layer.{query_layer,memory_layer,v,
-location_layer.{location_conv,location_dense}}``, ``decoder_rnn``,
-``linear_projection``, ``gate_layer``.
+``Decoder``/``Attention``/``LocationLayer``/``Prenet``, model.py:12-464):
+autoregressive inference and the plain-autograd teacher-forced forward
+(``teacher_forced``, the ``use_custom_bptt=False`` path; the hand-written
+BPTT path is ``models/decoder_bptt.py``).  State_dict names follow the
+reference: ``prenet.layers.{i}``, ``attention_rnn``,
+``attention_layer.{query_layer,memory_layer,v,location_layer.{location_conv,
+location_dense}}``, ``decoder_rnn``, ``linear_projection``, ``gate_layer``.
 
 ``Decoder.infer`` on a CUDA tensor runs kernel K1 (``ops/decoder_loop``) for
 every B from 1 to 8 and raises beyond; on the CPU it runs the plain loop
@@ -24,8 +26,19 @@ from torch import nn
 
 from ..ops import decoder_loop as _dl
 from ..ops.decoder_loop import ungroup_mel  # noqa: F401  (JAX decoder.ungroup_mel)
-from ..ops.layers import ConvNorm, LinearNorm, conv1d, linear
+from ..ops.layers import ConvNorm, LinearNorm, conv1d, dropout, linear
 from ..ops.rnn import lstm_cell
+
+PRENET_DROP = 0.5  # reference model.py:11,101
+
+
+def group_frames(mels, r: int):
+    """(B, n_mel, T) -> (B, T//r, r*n_mel) frame groups (T divisible by r)."""
+    B, n_mel, T = mels.shape
+    if T % r:
+        raise ValueError(f"mel length T={T} must be a multiple of n_frames_per_step={r} "
+                         "(data.dataset.collate pads to this)")
+    return mels.transpose(1, 2).reshape(B, T // r, r * n_mel)
 
 
 class Prenet(nn.Module):
@@ -91,6 +104,14 @@ class Decoder(nn.Module):
                                          x.shape[1], x.device) * 2.0
         return x
 
+    def prenet_train(self, x, generator=None, dropout_enabled=True, dtype=None):
+        """2 x (linear -> ReLU -> dropout 0.5) with dropout drawn from
+        ``generator`` (the teacher-forced prenet over all frames)."""
+        for layer in self.prenet.layers:
+            x = torch.relu(linear(x, layer.linear_layer.weight, dtype=dtype))
+            x = dropout(x, PRENET_DROP, generator, enabled=dropout_enabled)
+        return x
+
     def _attend(self, h_att, memory, processed_memory, attn_w, attn_w_cum,
                 mask, dtype=None):
         att = self.attention_layer
@@ -110,20 +131,71 @@ class Decoder(nn.Module):
         return context, weights
 
     def decode_step(self, state: DecoderState, prenet_out, memory,
-                    processed_memory, mask, dtype=None):
-        """One decoder step (reference Decoder.decode, eval mode)."""
+                    processed_memory, mask, dtype=None, train=False, generator=None):
+        """One decoder step (reference Decoder.decode); ``train`` applies
+        dropout to h and c of both LSTMs."""
+        hp = self.hp
         cell = self.attention_rnn
         h_att, c_att = lstm_cell(torch.cat([prenet_out, state.context], -1),
                                  state.h_att, state.c_att, cell.weight_ih,
                                  cell.weight_hh, cell.bias_ih, cell.bias_hh, dtype)
+        if train:
+            h_att = dropout(h_att, hp.p_attention_dropout, generator)
+            c_att = dropout(c_att, hp.p_attention_dropout, generator)
         context, attn_w = self._attend(h_att, memory, processed_memory,
                                        state.attn_w, state.attn_w_cum, mask, dtype)
         cell = self.decoder_rnn
         h_dec, c_dec = lstm_cell(torch.cat([h_att, context], -1), state.h_dec,
                                  state.c_dec, cell.weight_ih, cell.weight_hh,
                                  cell.bias_ih, cell.bias_hh, dtype)
+        if train:
+            h_dec = dropout(h_dec, hp.p_decoder_dropout, generator)
+            c_dec = dropout(c_dec, hp.p_decoder_dropout, generator)
         return DecoderState(h_att, c_att, h_dec, c_dec, attn_w,
                             state.attn_w_cum + attn_w, context)
+
+    def initial_state(self, memory) -> DecoderState:
+        B, S, E = memory.shape
+        hp = self.hp
+
+        def z(*s):
+            return torch.zeros(s, dtype=torch.float32, device=memory.device)
+
+        return DecoderState(z(B, hp.attention_rnn_dim), z(B, hp.attention_rnn_dim),
+                            z(B, hp.decoder_rnn_dim), z(B, hp.decoder_rnn_dim),
+                            z(B, S), z(B, S), z(B, E))
+
+    def teacher_forced(self, memory, mels, memory_lengths=None, *, train: bool,
+                       generator=None, dtype=None, prenet_dropout_enabled=True):
+        """Teacher-forced decoding with plain autograd (JAX
+        ``decoder.teacher_forced``): prenet over [go, frames[:-1]], one
+        decode step per r-frame group, the mel/gate projections after the
+        loop.  Returns (mel (B, n_mel, T), gate (B, T/r), alignments
+        (B, T/r, S))."""
+        hp = self.hp
+        B, S, _ = memory.shape
+        n_mel, r = hp.n_mel_channels, hp.n_frames_per_step
+        groups = group_frames(mels, r)
+        dec_in = torch.cat([groups.new_zeros(B, 1, r * n_mel), groups[:, :-1]], 1)
+        prenet_out = self.prenet_train(dec_in, generator, prenet_dropout_enabled, dtype)
+        processed = linear(memory, self.attention_layer.memory_layer.linear_layer.weight,
+                           dtype=dtype)
+        mask = None
+        if memory_lengths is not None:
+            mask = torch.arange(S, device=memory.device)[None, :] < memory_lengths[:, None]
+        state = self.initial_state(memory)
+        h_dec, ctx, align = [], [], []
+        for t in range(groups.shape[1]):
+            state = self.decode_step(state, prenet_out[:, t], memory, processed, mask,
+                                     dtype, train=train, generator=generator)
+            h_dec.append(state.h_dec)
+            ctx.append(state.context)
+            align.append(state.attn_w)
+        hidden_ctx = torch.cat([torch.stack(h_dec), torch.stack(ctx)], -1)  # (Tg, B, .)
+        proj, gate = self.linear_projection.linear_layer, self.gate_layer.linear_layer
+        mel_out = linear(hidden_ctx, proj.weight, proj.bias, dtype=dtype)
+        gate_out = linear(hidden_ctx, gate.weight, gate.bias, dtype=dtype)[..., 0]
+        return ungroup_mel(mel_out, n_mel, r), gate_out.t(), torch.stack(align, 1)
 
     def packed(self, dtype):
         """Kernel weight packing, cached until any parameter changes."""
@@ -165,9 +237,7 @@ class Decoder(nn.Module):
         processed_memory = linear(memory, mem_w, dtype=dtype)
         dev = memory.device
         z = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)  # noqa: E731
-        state = DecoderState(z(B, hp.attention_rnn_dim), z(B, hp.attention_rnn_dim),
-                             z(B, hp.decoder_rnn_dim), z(B, hp.decoder_rnn_dim),
-                             z(B, S), z(B, S), z(B, memory.shape[2]))
+        state = self.initial_state(memory)
         mel_buf = z(max_steps, B, r * n_mel)
         gate_buf = z(max_steps, B)
         align_buf = z(max_steps, B, S)

@@ -1,4 +1,4 @@
-"""Transcript encoder: 3 x (conv5 + BN + ReLU) -> BiLSTM, eval mode.
+"""Transcript encoder: 3 x (conv5 + BN + ReLU [+ dropout]) -> BiLSTM.
 
 Counterpart of the JAX package's ``models/encoder.py`` (reference
 ``Encoder``, model.py:151-203) with the reference state_dict names
@@ -10,8 +10,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.layers import ConvNorm, batchnorm, conv1d
+from ..ops.layers import ConvNorm, batchnorm, conv1d, dropout
 from ..ops.rnn import bilstm
+
+DROP_RATE = 0.5  # reference model.py:11
 
 
 class Encoder(nn.Module):
@@ -26,11 +28,16 @@ class Encoder(nn.Module):
         self.lstm = nn.LSTM(dim, dim // 2, 1, batch_first=True,
                             bidirectional=True)
 
-    def forward(self, x, lengths=None, *, dtype=None, mask_conv_inputs=False):
-        """x (B, T, D) embedded text -> (B, T, D); dropout off (eval).
+    def forward(self, x, lengths=None, *, dtype=None, mask_conv_inputs=False,
+                train=False, generator=None):
+        """x (B, T, D) embedded text -> (B, T, D).
 
         ``mask_conv_inputs`` zeroes padded positions before every conv, so
-        a bucket-padded sequence gives the unpadded run's valid outputs."""
+        a bucket-padded sequence gives the unpadded run's valid outputs.
+        ``train`` normalises with batch statistics (updating the running
+        ones) and applies dropout 0.5 after every ReLU, drawn from
+        ``generator``; training masks no conv input, as the reference lets
+        pad leak into the receptive field (JAX ``encoder.apply``)."""
         mask = None
         if mask_conv_inputs and lengths is not None:
             mask = (torch.arange(x.shape[1], device=x.device)[None, :]
@@ -40,5 +47,6 @@ class Encoder(nn.Module):
             if mask is not None:
                 x = torch.where(mask, x, torch.zeros_like(x))
             x = conv1d(x, conv.weight, conv.bias, dtype=dtype)
-            x = torch.relu(batchnorm(x, bn))
+            x = torch.relu(batchnorm(x, bn, train=train))
+            x = dropout(x, DROP_RATE, generator, enabled=train)
         return bilstm(x, self.lstm, lengths, dtype=dtype)

@@ -1,4 +1,4 @@
-"""Tacotron2-VAE top-level model, inference path.
+"""Tacotron2-VAE top-level model: teacher-forced forward and inference.
 
 Counterpart of the JAX package's ``models/tacotron2.py`` (reference
 ``Tacotron2``, model.py:467-547): symbol embedding -> transcript encoder ->
@@ -12,6 +12,7 @@ reference, take no part in the forward pass.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -28,6 +29,47 @@ def compute_dtype(hp):
     return None if hp.compute_dtype == "float32" else getattr(torch, hp.compute_dtype)
 
 
+class Tacotron2Output(NamedTuple):
+    """Reference output list order (model.py:546)."""
+
+    mel_outputs: torch.Tensor          # (B, n_mel, T)
+    mel_outputs_postnet: torch.Tensor  # (B, n_mel, T)
+    gate_outputs: torch.Tensor         # (B, T/r)
+    alignments: torch.Tensor           # (B, T/r, S)
+    mu: torch.Tensor                   # (B, z)
+    logvar: torch.Tensor               # (B, z)
+    z: torch.Tensor                    # (B, z)
+    emotions: torch.Tensor             # pass-through one-hots
+
+
+def _mask_outputs(mel, mel_postnet, gate, output_lengths):
+    """Zero padded mel frames and set padded gate logits to 1e3 (reference
+    parse_output, model.py:509-520); with r > 1 a step is padded iff its
+    first frame is past the length."""
+    if output_lengths is None:
+        return mel, mel_postnet, gate
+    T = mel.shape[2]
+    r = T // gate.shape[1]
+    dev = mel.device
+    valid = (torch.arange(T, device=dev)[None, :] < output_lengths[:, None])[:, None, :]
+    valid_step = (torch.arange(gate.shape[1], device=dev) * r)[None, :] < output_lengths[:, None]
+    return (torch.where(valid, mel, 0.0), torch.where(valid, mel_postnet, 0.0),
+            torch.where(valid_step, gate, 1e3))
+
+
+def scan_dtype(hp, B: int, S: int, on_cuda: bool):
+    """Stream dtype of the teacher-forced recurrence (``decoder_scan_dtype``).
+
+    "auto" takes the compute dtype when it is not float32 and either the
+    recurrence kernels run (the custom BPTT on a CUDA tensor) or B*S >= 2048,
+    the JAX package's rule with "the kernels engage" read as "on the card"."""
+    if hp.decoder_scan_dtype == "auto":
+        use = hp.compute_dtype != "float32" and (
+            B * S >= 2048 or (hp.use_custom_bptt and on_cuda))
+        return getattr(torch, hp.compute_dtype) if use else None
+    return None if hp.decoder_scan_dtype == "float32" else getattr(torch, hp.decoder_scan_dtype)
+
+
 class Tacotron2(nn.Module):
     def __init__(self, hp):
         super().__init__()
@@ -39,6 +81,49 @@ class Tacotron2(nn.Module):
         self.decoder = Decoder(hp)
         self.postnet = Postnet(hp)
         self.vae_gst = VAE_GST(hp)
+
+    def forward(self, batch: dict, *, train: bool, generator=None,
+                prenet_dropout_enabled: bool = True) -> Tacotron2Output:
+        """Teacher-forced forward (reference model.py:522-547, JAX
+        ``tacotron2.forward``).
+
+        batch: text (B, S) int, input_lengths (B,), mel (B, n_mel, T),
+        output_lengths (B,), emotions (B, n_emotions).  ``train`` turns on
+        batch-statistics batchnorm (updating the running statistics),
+        dropout, recurrent dropout and VAE sampling, all drawn from
+        ``generator``; the prenet's dropout follows
+        ``prenet_dropout_enabled`` in both modes (reference model.py:101)."""
+        from . import decoder_bptt
+
+        hp = self.hp
+        dtype = compute_dtype(hp)
+        text, lengths, mel = batch["text"], batch["input_lengths"], batch["mel"]
+        embedded = embedding(self.transcript_embedding.weight, text)
+        transcript = self.encoder(embedded, lengths, dtype=dtype, train=train,
+                                  generator=generator)
+        prosody, mu, logvar, z = self.vae_gst(
+            mel, dtype=dtype, raw_reshape=getattr(hp, "ref_enc_raw_reshape", False),
+            train=train, generator=generator)
+        memory = transcript + prosody[:, None, :]
+        B, S = text.shape
+        if hp.use_custom_bptt:
+            mel_out, gate_out, align = decoder_bptt.teacher_forced(
+                self.decoder, memory, mel, lengths, hp, train=train, generator=generator,
+                dtype=scan_dtype(hp, B, S, memory.is_cuda),
+                prenet_dropout_enabled=prenet_dropout_enabled)
+        else:
+            mel_out, gate_out, align = self.decoder.teacher_forced(
+                memory, mel, lengths, train=train, generator=generator, dtype=dtype,
+                prenet_dropout_enabled=prenet_dropout_enabled)
+        mel_post = mel_out + self.postnet(mel_out, dtype=dtype, train=train,
+                                          generator=generator)
+        if hp.mask_padding:
+            mel_out, mel_post, gate_out = _mask_outputs(mel_out, mel_post, gate_out,
+                                                        batch.get("output_lengths"))
+        emotions = batch.get("emotions")
+        if emotions is None:
+            emotions = mel.new_zeros(B, 0)
+        return Tacotron2Output(mel_out, mel_post, gate_out, align, mu, logvar, z, emotions)
 
     @torch.no_grad()
     def infer(self, text, style_embed, *, seed: int, max_steps=None,

@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``models/vae_gst.py`` (reference
 ``VAE_GST``/``ReferenceEncoder``/``CoordConv2d``, modules.py:8-85,
 CoordConv.py:37-74).  State_dict names: ``ref_encoder.convs.0.conv`` (the
 CoordConv), ``ref_encoder.convs.{i}``, ``ref_encoder.bns.{i}``,
-``ref_encoder.gru``, ``fc1``/``fc2``/``fc3``.  Eval mode: z = mu.
+``ref_encoder.gru``, ``fc1``/``fc2``/``fc3``.  Eval mode: z = mu; train
+mode: batch-statistics BN and z = mu + eps * exp(logvar / 2).
 """
 
 from __future__ import annotations
@@ -85,7 +86,7 @@ class VAE_GST(nn.Module):
         self.fc3 = nn.Linear(hp.z_latent_dim, hp.E)
 
     def reference_encoder(self, mel, *, dtype=None, raw_reshape=False,
-                          mel_lengths=None):
+                          mel_lengths=None, train=False):
         """mel (B, n_mels, T) -> (B, E//2) final GRU state.
 
         ``raw_reshape`` reproduces the reference's raw-memory
@@ -112,7 +113,7 @@ class VAE_GST(nn.Module):
                 x = add_coords_2d(x, lengths=valid_len)
                 conv = conv.conv
             x = conv2d(x, conv.weight, conv.bias, dtype=dtype)
-            x = torch.relu(batchnorm(x, bn))
+            x = torch.relu(batchnorm(x, bn, train=train))
             if valid_len is not None:
                 valid_len = (valid_len - 1) // 2 + 1
                 x = _zero_rows(x, valid_len)
@@ -122,12 +123,20 @@ class VAE_GST(nn.Module):
         _, h_final = gru_scan(x, enc.gru, lengths=valid_len, dtype=dtype)
         return h_final
 
-    def forward(self, mel, *, dtype=None, raw_reshape=False, mel_lengths=None):
-        """mel (B, n_mels, T) -> (style_embed, mu, logvar, z), z = mu."""
+    def forward(self, mel, *, dtype=None, raw_reshape=False, mel_lengths=None,
+                train=False, generator=None):
+        """mel (B, n_mels, T) -> (style_embed, mu, logvar, z).
+
+        Eval: z = mu.  Train: z = mu + eps * exp(0.5 * logvar) with eps
+        standard normal from ``generator`` (modules.py:16-22)."""
         enc = self.reference_encoder(mel, dtype=dtype, raw_reshape=raw_reshape,
-                                     mel_lengths=mel_lengths)
+                                     mel_lengths=mel_lengths, train=train)
         mu = linear(enc, self.fc1.weight, self.fc1.bias)
         logvar = linear(enc, self.fc2.weight, self.fc2.bias)
         z = mu
+        if train:
+            dev = mu.device if generator is None else generator.device
+            eps = torch.randn(mu.shape, generator=generator, device=dev).to(mu.device)
+            z = mu + eps * torch.exp(0.5 * logvar)
         style = linear(z, self.fc3.weight, self.fc3.bias)
         return style, mu, logvar, z

@@ -3,7 +3,8 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a plain-C shared
 library under ``tacotron2_vae_torch/build/`` at first use; the file name
 carries a hash of the source, so an edited kernel is rebuilt and a stale
-library is never loaded.  Nothing here runs at import time.
+library is never loaded (the hash covers the shared ``csrc/*.cuh`` headers
+too).  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -34,9 +35,12 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return src, os.path.join(BUILD, f"lib{name}_{digest}.so")
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(BUILD, f"lib{name}_{h.hexdigest()[:12]}.so")
 
 
 def build(names, verbose: bool = False) -> dict[str, str]:

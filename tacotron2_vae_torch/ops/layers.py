@@ -1,4 +1,4 @@
-"""Inference layers: linear, conv1d, conv2d, batchnorm, dropout, embedding.
+"""Layers: linear, conv1d, conv2d, batchnorm, dropout, embedding.
 
 Activations keep the JAX package's layouts at these functions (linear:
 (..., in); conv1d: (B, T, C) NWC; conv2d: (B, H, W, C) NHWC) so the port
@@ -85,12 +85,31 @@ def conv2d(x, w, b=None, stride=(2, 2), padding=(1, 1), dtype=None):
     return y if dtype is None else y.to(dtype)
 
 
-def batchnorm(x, bn: nn.BatchNorm1d, eps=None):
-    """Eval-mode batchnorm over the last (channel) axis of ``x``; the
-    statistics are fp32 and the output keeps ``x``'s dtype."""
+def batchnorm(x, bn: nn.BatchNorm1d, eps=None, train: bool = False,
+              momentum: float = 0.1):
+    """Batchnorm over the last (channel) axis of ``x``; the statistics are
+    fp32 and the output keeps ``x``'s dtype.
+
+    Eval mode normalises with the running statistics.  Train mode (JAX
+    ``layers.batchnorm(train=True)``) normalises with the batch's one-pass
+    statistics ``E[x]`` and ``max(E[x^2] - E[x]^2, 0)`` and updates the
+    module's running buffers in place (momentum 0.1, unbiased variance);
+    ``nn.BatchNorm``'s own forward is not used, its variance differs."""
     eps = bn.eps if eps is None else eps
-    inv = torch.rsqrt(bn.running_var.float() + eps) * bn.weight.float()
-    y = (x.float() - bn.running_mean.float()) * inv + bn.bias.float()
+    xf = x.float()
+    if train:
+        axes = tuple(range(x.ndim - 1))
+        mean = xf.mean(axes)
+        var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+        with torch.no_grad():
+            count = x.numel() // x.shape[-1]
+            unbiased = var * (count / max(count - 1, 1))
+            bn.running_mean.mul_(1 - momentum).add_(momentum * mean)
+            bn.running_var.mul_(1 - momentum).add_(momentum * unbiased)
+    else:
+        mean, var = bn.running_mean.float(), bn.running_var.float()
+    inv = torch.rsqrt(var + eps) * bn.weight.float()
+    y = (xf - mean) * inv + bn.bias.float()
     return y.to(x.dtype)
 
 
@@ -99,7 +118,8 @@ def dropout(x, rate: float, generator=None, enabled: bool = True):
     if not enabled or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    dev = x.device if generator is None else generator.device
+    mask = (torch.rand(x.shape, generator=generator, device=dev) < keep).to(x.device)
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -1,0 +1,138 @@
+"""Where a training step's time goes on the card (kernels K3/K4, full width).
+
+    python -m tacotron2_vae_torch.profile_train
+
+1. K3 (``teacher_fwd``) and K4 (``teacher_bwd``) at B=64, S=128, T=512
+   with recurrent dropout, in bf16 and f32: the wall time of one call (CUDA
+   events, mean of 2 after a warm-up), then one call under
+   ``torch.profiler`` with the device time of each of its kernels (total
+   and per step) and the device's busy share of the call.
+2. One full-width ``make_train_step`` step (bf16 defaults, B=64, S=128,
+   T=512) under ``torch.profiler``: the wall time and the 15 costliest
+   device kernels.
+Random weights and inputs from a fixed seed.  Prints one JSON line per
+part.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from .config import create_hparams
+from .models import decoder_bptt as bp
+from .ops import teacher_fwd as tf
+from .ops.layers import linear
+from .training.train_state import create_train_state, make_train_step
+
+B, S, T = 64, 128, 512
+
+
+def _kernels(prof, steps):
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        out[evt.key[:90]] = {"total_us": evt.device_time_total, "count": evt.count,
+                             "us_per_step": evt.device_time_total / steps}
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["total_us"]))
+
+
+def _timed(fn, reps=2):
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = start.elapsed_time(end) / reps
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return wall_ms, prof
+
+
+@torch.no_grad()
+def profile_recurrence(dec, dtype, device, seed=0):
+    hp = dec.hp
+    rng = np.random.RandomState(seed)
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(device)
+
+    w = tf.pack(bp.scan_params(dec), dtype)
+    memory = rand(B, S, hp.encoder_embedding_dim, scale=0.3)
+    pmem = linear(memory, dec.attention_layer.memory_layer.linear_layer.weight).contiguous()
+    prenet = torch.relu(rand(T, B, hp.prenet_dim))
+    add = torch.zeros(B, S, device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    masks = tuple(bp.dropout_masks(T, B, hp.attention_rnn_dim, 0.9, dtype, g, device)
+                  for _ in range(4))
+    ys, resids = tf.teacher_fwd(w, prenet, memory, pmem, add, masks)
+    dys = tuple(rand(*y.shape, scale=0.1) for y in ys)
+    zero = torch.zeros_like(ys[2][:1])
+    w_cum_prev = torch.cat([zero, torch.cumsum(ys[2], 0)[:-1]]).contiguous()
+    rows = []
+    for name, fn in (("K3", lambda: tf.teacher_fwd(w, prenet, memory, pmem, add, masks)),
+                     ("K4", lambda: tf.teacher_bwd(w, memory, pmem, masks, dys, ys, resids,
+                                                   w_cum_prev))):
+        wall_ms, prof = _timed(fn)
+        kernels = _kernels(prof, T)
+        busy = sum(k["total_us"] for k in kernels.values())
+        rows.append({"kernel": name, "dtype": str(dtype).replace("torch.", ""), "B": B,
+                     "S": S, "T": T, "wall_ms": wall_ms, "us_per_step": wall_ms * 1e3 / T,
+                     "device_busy_share": busy / (wall_ms * 1e3), "kernels": kernels})
+    return rows
+
+
+def profile_step(hp, device, seed=0):
+    ts = create_train_state(hp, device, seed=seed)
+    step = make_train_step(hp)
+    rng = np.random.RandomState(seed)
+    batch = {"text": torch.from_numpy(rng.randint(1, hp.n_symbols, (B, S))).to(device),
+             "input_lengths": torch.full((B,), S, device=device),
+             "mel": torch.from_numpy(rng.randn(B, hp.n_mel_channels, T).astype(np.float32)
+                                     ).to(device),
+             "output_lengths": torch.full((B,), T, device=device),
+             "gate": torch.zeros(B, T, device=device)}
+    batch["gate"][:, -1] = 1.0
+    gen = torch.Generator(device=device).manual_seed(seed)
+    step(ts, batch, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step(ts, batch, gen)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = _kernels(prof, 1)
+    busy = sum(k["total_us"] for k in kernels.values())
+    return {"train_step": "bf16", "B": B, "S": S, "T": T, "profiled_wall_ms": wall_ms,
+            "device_busy_ms": busy / 1e3, "top_kernels": dict(list(kernels.items())[:15])}
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train needs a CUDA card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    device = torch.device("cuda")
+    hp = create_hparams()
+    ts = create_train_state(hp, device, seed=1234)
+    for dtype in (torch.bfloat16, torch.float32):
+        for row in profile_recurrence(ts.model.decoder, dtype, device):
+            print(json.dumps(dict(row, card=card)), flush=True)
+    del ts
+    print(json.dumps(dict(profile_step(hp, device), card=card)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

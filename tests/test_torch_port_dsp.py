@@ -46,7 +46,7 @@ def interpret_pallas(monkeypatch):
 def test_mel_spectrogram_matches_jax_plain():
     wavs = np.stack([_wav(), _wav(seed=1)])
     want = np.asarray(JaxSTFT(*ARGS, use_pallas=False).mel_spectrogram(wavs))
-    got = TacotronSTFT(*ARGS).mel_spectrogram(t(wavs))
+    got = TacotronSTFT(*ARGS, device="cpu").mel_spectrogram(t(wavs))
     assert got.shape == want.shape == (2, 80, 9000 // 256 + 1)
     np.testing.assert_allclose(n(got), want, atol=1e-4, rtol=0)
 
@@ -63,7 +63,7 @@ def test_kernel_twin_matches_pallas_interpret(interpret_pallas, n_samples):
 
 
 def test_featurize_chunked_matches_per_clip():
-    stft = TacotronSTFT(*ARGS)
+    stft = TacotronSTFT(*ARGS, device="cpu")
     clips = [_wav(40000), _wav(5000, seed=2), _wav(700, seed=3)]
     mels = featurize_wavs_chunked(stft, clips, chunk_frames=32, batch_chunks=4)
     for clip, mel in zip(clips, mels):
