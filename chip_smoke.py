@@ -14,18 +14,32 @@
    K3 and K4 (teacher-forced recurrence forward and backward) at B=64,
    S=128, T=512 and at B=6, S=77, T=45 with masked rows, in bf16 and f32,
    recurrent dropout off and on: every output, and every gradient of the
-   recurrence through K4 against the same gradients through the twin.
-   Times each kernel, its twin and, for K2, one library call.
+   recurrence through K4 against the same gradients through the twin;
+   K5 and K6 (the reshape and output-block probes) at the probes' shapes,
+   on the probes' inputs and on random ones.  Times each kernel, its twin
+   and, for K2, K5 and K6, one library call.
 3. Train: 11 ``make_train_step`` steps on a fixed full-width batch (B=64,
    S=128, T=512, bf16) with random weights from the seed (ms/step, mel
    frames/s, peak memory; the loss must fall), then the real entry point
    ``training.train.train`` on a synthetic corpus of 128 + 16 clips through
    a validation, a checkpoint and a resume.  K2, K3 and K4 must launch.
-4. Serve: a full-width ``Synthesizer`` with random weights from a fixed seed
+4. Probe entry: ``tacotron2_vae_torch.tools.reshape_probe.main`` on the
+   card; all four probes must report correct (K5 and K6 launch there).
+5. Serve: a full-width ``Synthesizer`` with random weights from a fixed seed
    (gate bias set low, so every request decodes the full 600 steps),
    centroids from a synthetic manifest, then ``synthesize`` with a reference
    wav, ``synthesize`` with ratios, ``interpolate``, and ``synthesize_batch``
-   of 4 requests.
+   of 4 requests, vocoded by Griffin-Lim; then the same four through a
+   full-width WaveGlow with random weights (seed 1234, ``end`` not zero),
+   loaded from a self-describing pickle, in float32 and in bf16 (RTF and
+   vocoder ms per second of audio).  The WaveGlow alone on a 600-frame mel
+   (ms against its bound from the shapes), and the card's float32 WaveGlow
+   against the same module on the CPU on a 32-frame mel with a fixed z.
+   Then the HTTP API (``serving.app.make_server``) with that synthesizer:
+   4 concurrent ``POST /api`` and one ``GET /generate``; every reply a
+   finite wav, and the micro-batcher must group >= 2 requests into one K1
+   launch.  Last, 3 full-width WaveGlow train steps (batch 4, 16000-sample
+   segments): finite loss, ms/step, peak memory.
 
 Every launch counter is zeroed just before its path runs and read just
 after; each kernel must have launched.  Prints one JSON line per check,
@@ -36,6 +50,7 @@ no CUDA card is present.  Long logs go to ``chiprun_out/``.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -68,6 +83,13 @@ K2_TOL = 1e-4                                    # tests/test_pallas_stft.py:36
 # 3 s (188 frames, a multiple of the kernel's 4-frame block) and the serve
 # phase's 2 s reference clip (126 frames: a partial last block)
 K2_SECONDS = (3, 2)
+# K5: B rows of S*X; the probes' (S, X) shapes, the first one timed
+K5_B, K5_SHAPES = 4, ((128, 128), (128, 32), (128, 256))
+K6_SHAPE = (512, 128, 32, 4)                     # BS, K, F, T
+K6_TOL = 1e-5                                    # float32 sum order over K=128
+WG_MEL_FRAMES = 600                              # the serve phase's longest mel
+WG_CPU_FRAMES, WG_CPU_TOL = 32, 1e-4             # card vs CPU, relative to max |audio|
+WG_TRAIN = (4, 16000, 3)                         # batch, segment samples, steps
 HBM_BYTES_PER_S = 3.35e12
 PEAK = {"bfloat16": 989e12, "float32": 67e12}
 
@@ -87,6 +109,29 @@ def cuda_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn`` (a few microseconds of work): ``reps``
+    calls captured in one CUDA graph and replayed, so the host's per-call
+    work, larger than the kernel here, drops out; the gaps between the
+    graph's launches stay in."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -272,6 +317,95 @@ def kernels_phase(model, hp, device):
     report["K1"] = dict(k1_main, max_abs_err=k1_err)
     report["K2"] = dict(k2_main, max_abs_err=k2_err)
     return report, rows
+
+
+# ------------------------------------------------ K5 / K6 (the probes)
+
+
+def k56_phase(device):
+    """K5 and K6 against their twins at the probes' shapes, on the probes'
+    inputs and on random ones; the first shape of each timed beside its
+    twin, one library call and its bound (device time per call from graph
+    replay; ``host_bound_ms`` is the same call timed back to back from the
+    host)."""
+    import numpy as np
+    import torch
+    from tacotron2_vae_torch.ops import reshape_probe as rp
+
+    rng = np.random.RandomState(SEED)
+    rows, report = [], {}
+    for S, X in K5_SHAPES:
+        n = K5_B * S * X
+        for inputs in ("probe", "random"):
+            x = (torch.arange(n, dtype=torch.float32) if inputs == "probe"
+                 else torch.from_numpy(rng.randn(n).astype(np.float32))).to(device)
+            x = x.reshape(K5_B, S * X)
+            got = rp.reshape_rows_plus_one(x, S, X)
+            want = rp.reshape_rows_plus_one_plain(x, S, X)
+            torch.cuda.synchronize()
+            row = {"kernel": "K5", "B": K5_B, "S": S, "X": X, "inputs": inputs,
+                   "max_abs_err": float((got - want).abs().max()),
+                   "fails": [] if torch.equal(got, want) else ["out"]}
+            if (S, X) == K5_SHAPES[0] and inputs == "random":
+                row.update(ms=graph_ms(lambda: rp.reshape_rows_plus_one(x, S, X), 200),
+                           plain_ms=graph_ms(lambda: rp.reshape_rows_plus_one_plain(x, S, X),
+                                             200),
+                           library_ms=graph_ms(lambda: x.reshape(K5_B * S, X) + 1, 200),
+                           host_bound_ms=cuda_ms(lambda: rp.reshape_rows_plus_one(x, S, X),
+                                                 200))
+                row["bound_ms"], row["bound_by"] = bound(2 * n * 4, n, "float32")
+                report["K5"] = row
+            rows.append(row)
+    BS, K, F, T = K6_SHAPE
+    for inputs in ("probe", "random"):
+        if inputs == "probe":
+            x, w = torch.ones((BS, K), device=device), torch.ones((K, F), device=device)
+        else:
+            x = torch.from_numpy((0.3 * rng.randn(BS, K)).astype(np.float32)).to(device)
+            w = torch.from_numpy((0.3 * rng.randn(K, F)).astype(np.float32)).to(device)
+        got = rp.out_block_matmul(x, w, T)
+        want = rp.out_block_matmul_plain(x, w, T)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        row = {"kernel": "K6", "BS": BS, "K": K, "F": F, "T": T, "inputs": inputs,
+               "max_abs_err": err, "tol": K6_TOL,
+               "fails": [] if err <= K6_TOL and got.shape == (T, BS, F) else ["out"]}
+        if inputs == "random":
+            xt = x.expand(T, BS, K)
+            row.update(ms=graph_ms(lambda: rp.out_block_matmul(x, w, T), 200),
+                       plain_ms=graph_ms(lambda: rp.out_block_matmul_plain(x, w, T), 200),
+                       library_ms=graph_ms(lambda: torch.matmul(xt, w), 200),
+                       host_bound_ms=cuda_ms(lambda: rp.out_block_matmul(x, w, T), 200),
+                       library_max_abs_err=float((torch.matmul(xt, w) - want).abs().max()))
+            # the least work: one product (stored T times), each byte moved once
+            row["bound_ms"], row["bound_by"] = bound((BS * K + K * F + T * BS * F) * 4,
+                                                     2.0 * BS * K * F, "float32")
+            report["K6"] = row
+        rows.append(row)
+    for row in rows:
+        print(json.dumps(row), flush=True)
+    failed = [r for r in rows if r["fails"]]
+    if failed:
+        raise AssertionError(f"K5/K6 disagree with their twins: {failed}")
+    report["K5"]["max_abs_err"] = max(r["max_abs_err"] for r in rows if r["kernel"] == "K5")
+    report["K6"]["max_abs_err"] = max(r["max_abs_err"] for r in rows if r["kernel"] == "K6")
+    return report, rows
+
+
+def probe_entry():
+    """The probes' entry point on the card: all four must pass, through K5
+    and K6."""
+    from tacotron2_vae_torch.ops import reshape_probe as rp
+    from tacotron2_vae_torch.tools import reshape_probe
+
+    rp.reshape_rows_plus_one.launches = rp.out_block_matmul.launches = 0
+    ok = reshape_probe.main([])
+    launches = {"K5": rp.reshape_rows_plus_one.launches, "K6": rp.out_block_matmul.launches}
+    row = {"phase": "probe_entry", "ok": ok, "launches": launches}
+    print(json.dumps(row), flush=True)
+    if not ok or min(launches.values()) < 1:
+        raise AssertionError(f"the reshape probes failed or skipped K5/K6: {row}")
+    return row
 
 
 # ------------------------------------------------- K3 / K4 (recurrence)
@@ -616,17 +750,38 @@ def write_wav(path, seconds, freq, rng, sr=16000):
     wavfile.write(path, sr, (np.clip(x, -1, 1) * 32767).astype(np.int16))
 
 
-def serve_phase(model, hp, device, tmp):
+def random_waveglow():
+    """A full-width WaveGlow with random weights from the seed, on the CPU.
+    The JAX-style init zeroes every ``end``, which makes each coupling the
+    identity; a random ``end`` makes the WaveNets count.  Its scale, 0.01
+    (``profile_vocoder.END_SCALE``), gives log_s a spread of ~0.23; at 0.05
+    (the tiny CPU tests' scale) the full-width flow is chaotic (log_s ~1.2,
+    |audio| ~1e6, and a 1e-6 change of z moves the audio by ~3e-3 of its
+    scale), which would hide a kernel's error behind the flow's own."""
+    import torch
+    from tacotron2_vae_torch.models.waveglow import WaveGlow, init_weights
+    from tacotron2_vae_torch.profile_vocoder import END_SCALE
+
+    wg = init_weights(WaveGlow(), torch.Generator().manual_seed(SEED), end_scale=END_SCALE)
+    return wg.eval().requires_grad_(False)
+
+
+def serve_files(model, wg, tmp):
+    """The checkpoint, the WaveGlow pickle, a centroid manifest and a
+    reference wav, written into ``tmp``."""
+    import pickle
+
     import numpy as np
     import torch
-    from scipy.io import wavfile
-    from tacotron2_vae_torch.ops import decoder_loop as dl
-    from tacotron2_vae_torch.ops import stft_mel as sm
-    from tacotron2_vae_torch.serving.synthesizer import Synthesizer
+    from tacotron2_vae_torch.convert import to_jax_waveglow
 
     rng = np.random.RandomState(SEED)
     ckpt = os.path.join(tmp, "checkpoint_random.pt")
     torch.save({"state_dict": {k: v.cpu() for k, v in model.state_dict().items()}}, ckpt)
+    wg_path = os.path.join(tmp, "waveglow_random.pkl")
+    with open(wg_path, "wb") as f:
+        pickle.dump({"waveglow": to_jax_waveglow(wg.state_dict()),
+                     "config": wg.cfg.__dict__}, f)
     manifest = os.path.join(tmp, "manifest_test.txt")
     with open(manifest, "w", encoding="utf-8") as f:
         for i in range(8):
@@ -635,30 +790,39 @@ def serve_phase(model, hp, device, tmp):
             f.write(f"{p}|{TEXT}|0|{i % 4}\n")
     ref = os.path.join(tmp, "ref.wav")
     write_wav(ref, 2.0, 180, rng)
+    return ckpt, wg_path, manifest, ref
 
-    synth = Synthesizer(hp, device=device)
-    synth.load(ckpt, centroid_filelist=manifest)
-    if not synth.centroids_loaded:
-        raise AssertionError("centroid precompute embedded no clips")
 
-    decode = []
-    inner = synth.synthesize_mel_batch
+def serve_requests(synth, hp, tmp, ref, vocoder):
+    """The four kinds of request through ``synth``: one JSON row each with
+    decode time, vocoder time and RTF."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    decode, vocode = [], []
+    inner_mel, inner_voc = synth.synthesize_mel_batch, synth.vocode
 
     def timed_mel_batch(texts, styles):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        items = inner(texts, styles)
+        items = inner_mel(texts, styles)
         decode.append((time.perf_counter() - t0, items))
         return items
 
-    synth.synthesize_mel_batch = timed_mel_batch
-    dl.decode_loop.launches = 0
-    sm.mel_spectrogram_fused.launches = 0
+    def timed_vocode(mel, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wav = inner_voc(mel, *args, **kw)  # a host array: the card is done
+        vocode.append(time.perf_counter() - t0)
+        return wav
 
+    synth.synthesize_mel_batch, synth.vocode = timed_mel_batch, timed_vocode
     results = []
 
     def run(name, fn, paths):
         decode.clear()
+        vocode.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -677,13 +841,14 @@ def serve_phase(model, hp, device, tmp):
             if len(wav) < (it[4] - 1) * hp.hop_length or not np.isfinite(wav).all():
                 raise AssertionError(f"{name}: wav of {len(wav)} samples")
             audio_s += len(wav) / sr
-        row = {"request": name, "rows": len(items), "frames": frames,
+        row = {"request": name, "vocoder": vocoder, "rows": len(items), "frames": frames,
                "decode_s": dec_s, "decode_us_per_frame": dec_s * 1e6 / max(frames),
+               "vocode_s": sum(vocode), "vocoder_ms_per_audio_s": sum(vocode) * 1e3 / audio_s,
                "wall_s": wall, "audio_s": audio_s, "rtf": wall / audio_s}
         print(json.dumps(row), flush=True)
         results.append(row)
 
-    out = [os.path.join(tmp, f"out{i}.wav") for i in range(8)]
+    out = [os.path.join(tmp, f"{vocoder}_out{i}.wav") for i in range(8)]
     run("synthesize_ref", lambda: synth.synthesize(TEXT, out[0], True, ref, None), out[:1])
     run("synthesize_ratios", lambda: synth.synthesize(
         TEXT, out[1], False, None, [0.1, 0.6, 0.2, 0.1]), out[1:2])
@@ -698,10 +863,226 @@ def serve_phase(model, hp, device, tmp):
     reqs = [(TEXTS[i], out[4 + i], i % 2 == 0, ref if i % 2 == 0 else None,
              None if i % 2 == 0 else [0.25, 0.25, 0.25, 0.25]) for i in range(4)]
     run("synthesize_batch_4", lambda: synth.synthesize_batch(reqs), out[4:8])
+    synth.synthesize_mel_batch, synth.vocode = inner_mel, inner_voc
+    return results
+
+
+def waveglow_flops(cfg, frames):
+    """(bf16-able, float32) operations of one ``infer`` on ``frames`` mel
+    frames: the WaveNet convolutions, and the upsampler plus 1x1 mixing."""
+    T = frames * cfg.upsample_stride // cfg.n_group
+    nc, L, K = cfg.n_channels, cfg.n_layers, cfg.kernel_size
+    wavenet = mixing = 0
+    for c in cfg.audio_channels():
+        h = c // 2
+        wavenet += 2 * T * (h * nc + cfg.n_mel_channels * cfg.n_group * 2 * nc * L
+                            + L * K * nc * 2 * nc + (L - 1) * nc * 2 * nc + nc * nc + nc * 2 * h)
+        mixing += 2 * T * c * c
+    up = 2 * frames * cfg.n_mel_channels ** 2 * cfg.upsample_kernel
+    return float(wavenet), float(mixing + up)
+
+
+def vocoder_phase(wg, device):
+    """The WaveGlow alone on a 600-frame mel, float32 and bf16 (CUDA events,
+    bound from the shapes), and the card's float32 inverse against the same
+    module on the CPU on a short mel with a fixed z."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(SEED)
+    card = copy.deepcopy(wg).to(device)
+    w_inv = card.inverse_weights()
+    mel = torch.from_numpy((-6 + 2 * rng.rand(1, 80, WG_MEL_FRAMES)).astype(np.float32)).to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    weight_bytes = sum(p.numel() * 4 for p in card.parameters())
+    wavenet, rest = waveglow_flops(card.cfg, WG_MEL_FRAMES)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        audio = card.infer(mel, 0.666, gen, dtype, w_inv)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(audio).all()) or audio.shape != (1, WG_MEL_FRAMES * 256):
+            raise AssertionError(f"WaveGlow {name}: audio {tuple(audio.shape)} not finite")
+        ms = cuda_ms(lambda: card.infer(mel, 0.666, gen, dtype, w_inv), 3)
+        t_ops = wavenet / PEAK[name] + rest / PEAK["float32"]
+        t_bytes = (weight_bytes + mel.numel() * 4 + audio.numel() * 4) / HBM_BYTES_PER_S
+        row = {"phase": "vocoder", "dtype": name, "frames": WG_MEL_FRAMES, "ms": ms,
+               "ms_per_audio_s": ms / (audio.shape[1] / 16000),
+               "gflop": (wavenet + rest) / 1e9, "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    # the card's float32 WaveGlow against the CPU: a TF32 convolution would
+    # show as ~1e-3, the card's float32 sum order as far less
+    z = rng.randn(1, WG_CPU_FRAMES * 32, 8).astype(np.float32)
+    short = rng.randn(1, 80, WG_CPU_FRAMES).astype(np.float32) - 5
+    got = card.inverse(torch.from_numpy(z).to(device), torch.from_numpy(short).to(device),
+                       w_inv=w_inv).cpu()
+    t0 = time.perf_counter()
+    want = wg.inverse(torch.from_numpy(z), torch.from_numpy(short))
+    cpu_s = time.perf_counter() - t0
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    row = {"phase": "vocoder_vs_cpu", "frames": WG_CPU_FRAMES, "rel_err": err,
+           "tol": WG_CPU_TOL, "cpu_s": cpu_s, "max_abs_audio": float(want.abs().max())}
+    print(json.dumps(row), flush=True)
+    rows.append(row)
+    if not err <= WG_CPU_TOL:
+        raise AssertionError(f"the card's WaveGlow disagrees with the CPU: {row}")
+    return rows
+
+
+def http_phase(synth, tmp):
+    """``make_server(0)`` with ``synth``: 4 concurrent ``POST /api`` and one
+    ``GET /generate``; every reply a finite wav, one K1 launch per batch, a
+    batch of >= 2 requests."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+    from urllib.parse import quote
+
+    import numpy as np
+    from scipy.io import wavfile
+    from tacotron2_vae_torch.ops import decoder_loop as dl
+    from tacotron2_vae_torch.serving import app
+
+    app.synthesizer, app._WEB, app._batcher = synth, os.path.join(tmp, "web"), None
+    sizes = []
+    inner = synth.synthesize_batch
+
+    def spy(reqs, **kw):
+        t0 = time.perf_counter()
+        out = inner(reqs, **kw)
+        sizes.append(len(reqs))
+        batch_s.append(time.perf_counter() - t0)
+        return out
+
+    batch_s = []
+    synth.synthesize_batch = spy
+    server = app.make_server(0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    replies, errors = {}, []
+
+    def hit(i):
+        t0 = time.perf_counter()
+        try:
+            if i < 4:
+                body = json.dumps({"text": TEXTS[i], "neu": 1, "sad": i, "hap": 0, "ang": 1})
+                req = urllib.request.Request(f"{base}/api", data=body.encode(),
+                                             headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    status, data = r.status, base64.b64decode(json.loads(r.read())["data"])
+            else:
+                url = f"{base}/generate?text={quote(TEXT)}&n=1&s=0&h=1&a=0"
+                with urllib.request.urlopen(url, timeout=300) as r:
+                    status, data = r.status, r.read()
+            sr, wav = wavfile.read(io.BytesIO(data))
+            ok = status == 200 and sr == 16000 and len(wav) > 0 and bool(np.isfinite(wav).all())
+            replies[i] = {"status": status, "samples": len(wav), "ok": ok,
+                          "latency_s": time.perf_counter() - t0}
+        except Exception as e:  # noqa: BLE001 - every failure is raised below
+            errors.append((i, repr(e)))
+
+    k1_before = dl.decode_loop.launches
+    try:
+        threads = [threading.Thread(target=hit, args=(i,)) for i in range(5)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        server.shutdown()
+        server.server_close()
+        synth.synthesize_batch = inner
+    row = {"phase": "http", "batches": sizes, "batch_s": batch_s,
+           "k1_launches": dl.decode_loop.launches - k1_before,
+           "replies": replies, "errors": errors}
+    print(json.dumps(row), flush=True)
+    if errors or len(replies) != 5 or not all(r["ok"] for r in replies.values()):
+        raise AssertionError(f"HTTP requests failed: {row}")
+    if max(sizes) < 2 or row["k1_launches"] != len(sizes):
+        raise AssertionError(f"the micro-batcher did not group requests into K1 launches: {row}")
+    return row
+
+
+def waveglow_train(wg, device):
+    """3 full-width ``make_waveglow_train_step`` steps at batch 4 on
+    16000-sample segments of synthetic audio, mels through K2."""
+    import numpy as np
+    import torch
+    from tacotron2_vae_torch.models.waveglow import WaveGlow, make_waveglow_train_step
+    from tacotron2_vae_torch.ops import stft_mel as sm
+
+    B, n, steps = WG_TRAIN
+    model = WaveGlow(wg.cfg)
+    model.load_state_dict(wg.state_dict())
+    model = model.to(device).train()
+    step = make_waveglow_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-4))
+    rng = np.random.RandomState(SEED)
+    t = np.arange(n) / 16000
+    audio = torch.from_numpy(np.stack([
+        0.3 * np.sin(2 * np.pi * (150 + 50 * i) * t) + 0.02 * rng.randn(n) for i in range(B)
+    ]).astype(np.float32)).to(device)
+    mel = torch.cat([sm.mel_spectrogram_fused(a) for a in audio])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, times = [], []
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics.append(step(audio, mel))
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    row = {"phase": "waveglow_train", "B": B, "samples": n, "mel_frames": mel.shape[2],
+           "ms_per_step_each": times, "ms_per_step_after_first": sum(times[1:]) / (steps - 1),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "loss": [m["loss"] for m in metrics], "grad_norm": [m["grad_norm"] for m in metrics]}
+    print(json.dumps(row), flush=True)
+    if not all(m["updated"] and math.isfinite(m["loss"]) for m in metrics):
+        raise AssertionError(f"WaveGlow train steps not finite: {row}")
+    return row
+
+
+def serve_phase(model, hp, device, tmp):
+    """Griffin-Lim requests, WaveGlow requests (float32, bf16), the vocoder
+    alone, the HTTP API, WaveGlow train steps.  K1 and K2 launches are
+    counted over the whole phase."""
+    import torch
+    from tacotron2_vae_torch.ops import decoder_loop as dl
+    from tacotron2_vae_torch.ops import stft_mel as sm
+    from tacotron2_vae_torch.serving.synthesizer import Synthesizer
+
+    wg = random_waveglow()
+    ckpt, wg_path, manifest, ref = serve_files(model, wg, tmp)
+    dl.decode_loop.launches = 0
+    sm.mel_spectrogram_fused.launches = 0
+    synth = Synthesizer(hp, device=device)
+    synth.load(ckpt, centroid_filelist=manifest)
+    if not synth.centroids_loaded:
+        raise AssertionError("centroid precompute embedded no clips")
+    results = serve_requests(synth, hp, tmp, ref, "griffin_lim")
+    del synth
+    synth = Synthesizer(hp, device=device)
+    synth.load(ckpt, waveglow_path=wg_path, centroid_filelist=manifest)
+    if synth.waveglow_cfg != wg.cfg or synth.waveglow is None:
+        raise AssertionError("the WaveGlow pickle was not adopted")
+    for dtype in (None, torch.bfloat16):
+        synth.vocoder_dtype = dtype
+        results += serve_requests(synth, hp, tmp, ref,
+                                  "waveglow_" + ("bfloat16" if dtype else "float32"))
+    synth.vocoder_dtype = None
+    http = http_phase(synth, tmp)
     launches = {"K1": dl.decode_loop.launches, "K2": sm.mel_spectrogram_fused.launches}
     if launches["K1"] < 4 or launches["K2"] < 1:
         raise AssertionError(f"serving did not run through the kernels: {launches}")
-    return results, launches
+    del synth
+    torch.cuda.empty_cache()
+    vocoder = vocoder_phase(wg, device)
+    train = waveglow_train(wg, device)
+    return results + vocoder + [http, train], launches
 
 
 def main() -> int:
@@ -719,8 +1100,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} | {card}", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     t0 = time.perf_counter()
-    logs = _build.build(["decoder_loop", "stft_mel", "teacher_fwd", "teacher_bwd"],
-                        verbose=True)
+    logs = _build.build(["decoder_loop", "stft_mel", "teacher_fwd", "teacher_bwd",
+                         "reshape_probe"], verbose=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         for name, log in logs.items():
             f.write(f"== {name}\n{log}\n")
@@ -733,6 +1114,8 @@ def main() -> int:
         k34_phase(model, device)
         return 0
     report, rows = kernels_phase(model, hp, device)
+    k56, k56_rows = k56_phase(device)
+    report.update(k56)
     k34, k34_rows = k34_phase(model, device)
     steady = steady_steps(hp, device)
     torch.cuda.empty_cache()
@@ -741,10 +1124,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         results, launches = serve_phase(model, hp, device, tmp)
-    launches.update({k: entry["launches"][k] for k in ("K3", "K4")})
+    probes = probe_entry()
+    launches.update({k: entry["launches"][k] for k in ("K3", "K4")}, **probes["launches"])
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernel_checks": rows + k34_rows, "requests": results,
-                   "train": [steady, entry], "launches": launches}, f, indent=1)
+        json.dump({"card": card, "kernel_checks": rows + k56_rows + k34_rows,
+                   "requests": results, "train": [steady, entry], "probes": probes,
+                   "launches": launches}, f, indent=1)
 
     t = k34["row"]
     report["K3"] = {"max_abs_err": k34["K3"], "ms": t["K3_ms"], "plain_ms": t["K3_plain_ms"],
@@ -761,6 +1146,10 @@ def main() -> int:
                "tacotron2_vae_tpu/ops/pallas/teacher_fwd.py:75 (_kernel)"),
         "K4": ("teacher_bwd", "tacotron2_vae_torch/csrc/teacher_bwd.cu",
                "tacotron2_vae_tpu/ops/pallas/teacher_fwd.py:306 (_bwd_kernel)"),
+        "K5": ("probe_reshape", "tacotron2_vae_torch/csrc/reshape_probe.cu",
+               "tools/reshape_probe.py:31 (probe_reshape.kernel)"),
+        "K6": ("probe_out_block", "tacotron2_vae_torch/csrc/reshape_probe.cu",
+               "tools/reshape_probe.py:54 (probe_out_block.kernel)"),
     }
     kernels = []
     for key, (name, source, replaces) in meta.items():

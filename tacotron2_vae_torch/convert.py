@@ -3,16 +3,24 @@
 ``from_jax_params(params, model_state, hp)`` turns the JAX package's numpy
 pytree (what ``tools/convert_torch_ckpt.py`` and the JAX trainer's pickles
 hold) into a ``state_dict`` for ``models.tacotron2.Tacotron2`` with the
-reference names; ``to_jax_params`` is its inverse.  Layouts:
+reference names; ``to_jax_params`` is its inverse.  ``from_jax_waveglow``
+and ``to_jax_waveglow`` do the same for ``models.waveglow.WaveGlow``, and
+``from_reference_waveglow`` reads an NVIDIA WaveGlow checkpoint (a state
+dict, or a whole pickled model) by folding its weight norm.  Layouts:
 
   linear   JAX w (in, out)            <-> torch weight (out, in)
   conv1d   JAX w (K, in, out)         <-> torch weight (out, in, K)
   conv2d   JAX w (kh, kw, in, out)    <-> torch weight (out, in, kh, kw)
+  convT1d  JAX w (K, in, out)         <-> torch weight (in, out, K)
+  1x1 flow JAX w (c, c), x @ w        <-> torch weight (c, c, 1) = w^T
   LSTM/GRU JAX wi (in, 4H|3H), wh     <-> torch weight_ih (4H|3H, in), weight_hh
   BN       scale/bias + mean/var      <-> weight/bias + running_mean/running_var
 """
 
 from __future__ import annotations
+
+import sys
+import types
 
 import numpy as np
 import torch
@@ -200,3 +208,91 @@ def to_jax_params(state_dict) -> tuple[dict, dict]:
     model_state = {"encoder": {"bns": enc_state}, "postnet": {"bns": post_state},
                    "vae_gst": {"bns": ref_state}}
     return params, model_state
+
+
+# --------------------------------------------------------------- WaveGlow
+
+
+def from_jax_waveglow(tree) -> dict:
+    """JAX WaveGlow params (``models/waveglow.py`` ``init``, numpy or float16
+    leaves) -> the port's (NVIDIA-named) state_dict, in float32."""
+    up = tree["upsample"]
+    sd = {"upsample.weight": _t(np.transpose(np.asarray(up["w"]), (1, 2, 0))),
+          "upsample.bias": _t(up["b"])}
+    for k, flow in enumerate(tree["flows"]):
+        wn = flow["wn"]
+        for name, key in (("start", "start"), ("end", "end"), ("cond_layer", "cond")):
+            _conv1d(sd, f"WN.{k}.{name}", wn[key])
+        for i, p in enumerate(wn["in"]):
+            _conv1d(sd, f"WN.{k}.in_layers.{i}", p)
+        for i, p in enumerate(wn["res_skip"]):
+            _conv1d(sd, f"WN.{k}.res_skip_layers.{i}", p)
+        sd[f"convinv.{k}.conv.weight"] = _t(np.asarray(flow["inv_conv"]["w"]).T[:, :, None])
+    return sd
+
+
+def to_jax_waveglow(state_dict) -> dict:
+    """The port's WaveGlow state_dict -> JAX WaveGlow params (numpy), the
+    inverse of ``from_jax_waveglow``."""
+    sd = state_dict
+    flows, k = [], 0
+    while f"convinv.{k}.conv.weight" in sd:
+        n_layers = sum(1 for key in sd if key.startswith(f"WN.{k}.in_layers.")
+                       and key.endswith(".weight"))
+        wn = {"start": _conv1d_inv(sd, f"WN.{k}.start"), "end": _conv1d_inv(sd, f"WN.{k}.end"),
+              "cond": _conv1d_inv(sd, f"WN.{k}.cond_layer"),
+              "in": [_conv1d_inv(sd, f"WN.{k}.in_layers.{i}") for i in range(n_layers)],
+              "res_skip": [_conv1d_inv(sd, f"WN.{k}.res_skip_layers.{i}")
+                           for i in range(n_layers)]}
+        w = _n(sd, f"convinv.{k}.conv.weight")[:, :, 0].T.copy()
+        flows.append({"inv_conv": {"w": w}, "wn": wn})
+        k += 1
+    return {"upsample": {"w": np.transpose(_n(sd, "upsample.weight"), (2, 0, 1)).copy(),
+                         "b": _n(sd, "upsample.bias")},
+            "flows": flows}
+
+
+def fold_weight_norm(sd) -> dict:
+    """Fold ``weight_g``/``weight_v`` pairs into plain ``weight``s (the norm
+    is over every axis but the first, as ``torch.nn.utils.weight_norm``)."""
+    out = {}
+    for k, v in sd.items():
+        if k.endswith("weight_g"):
+            base = k[:-len("weight_g")]
+            g = np.asarray(v, np.float32)
+            w = np.asarray(sd[base + "weight_v"], np.float32)
+            norm = np.sqrt((w ** 2).sum(axis=tuple(range(1, w.ndim)), keepdims=True))
+            out[base + "weight"] = g * w / norm
+        elif not k.endswith("weight_v"):
+            out[k] = v
+    return out
+
+
+def _load_reference_waveglow(path: str) -> dict:
+    """The state dict of an NVIDIA WaveGlow checkpoint: a plain state dict,
+    ``{"state_dict": ...}``, or a whole pickled model (``{"model": ...}``).
+    A pickled model names NVIDIA's ``glow`` module; stub classes stand in
+    for it while unpickling (unpickling calls no ``__init__``)."""
+    stub = types.ModuleType("glow")
+    for cls in ("WaveGlow", "WN", "Invertible1x1Conv", "WaveGlowLoss"):
+        setattr(stub, cls, type(cls, (torch.nn.Module,), {}))
+    added = sys.modules.setdefault("glow", stub) is stub
+    try:
+        blob = torch.load(path, map_location="cpu", weights_only=False)
+    finally:
+        if added:
+            del sys.modules["glow"]
+    if isinstance(blob, dict) and "model" in blob:
+        blob = blob["model"]
+    elif isinstance(blob, dict) and "state_dict" in blob:
+        blob = blob["state_dict"]
+    return blob.state_dict() if hasattr(blob, "state_dict") else blob
+
+
+def from_reference_waveglow(path_or_sd) -> dict:
+    """NVIDIA WaveGlow checkpoint (a path, or its state dict) -> the port's
+    state_dict in float32.  The names are the same; weight norm is folded."""
+    sd = _load_reference_waveglow(path_or_sd) if isinstance(path_or_sd, str) else path_or_sd
+    sd = {k: v.detach().cpu().float().numpy() if isinstance(v, torch.Tensor) else v
+          for k, v in sd.items()}
+    return {k: _t(v) for k, v in fold_weight_norm(sd).items()}

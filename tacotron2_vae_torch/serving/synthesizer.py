@@ -10,9 +10,12 @@ checkpoint), and interpolation between two centroids.  The decoder loop runs
 as kernel K1 on the card for batches of 1 to 8 rows.
 
 Runs on CUDA unless ``device="cpu"`` is given; without a card it raises.
-Vocoding is Griffin-Lim on the postnet mel (``vocode_prepostnet=True`` for
-the reference's pre-postnet mel); WaveGlow is not ported yet, and a
-``waveglow_path`` makes ``vocode`` raise.
+Vocoding is WaveGlow when ``load`` is given a ``waveglow_path`` (a
+self-describing ``{"waveglow", "config"}`` pickle of the JAX package's
+params, or a reference NVIDIA ``.pt``), else Griffin-Lim; either runs on
+the postnet mel (``vocode_prepostnet=True`` for the reference's
+pre-postnet mel).  ``vocoder_dtype = torch.bfloat16`` runs WaveGlow's
+WaveNet convolutions in bf16 (float32 by default, as the JAX package).
 
     python -m tacotron2_vae_torch.serving.synthesizer --load_path ckpt.pt \\
         --text "..." [--ref_audio ref.wav | --ratios 1,0,0,0]
@@ -31,10 +34,11 @@ import numpy as np
 import torch
 
 from ..config import create_hparams
-from ..convert import from_jax_params
+from ..convert import from_jax_params, from_jax_waveglow, from_reference_waveglow
 from ..dsp import TacotronSTFT, griffin_lim, load_wav, save_wav
 from ..dsp.stft import dynamic_range_decompression
 from ..models.tacotron2 import Tacotron2, compute_dtype
+from ..models.waveglow import WaveGlow, WaveGlowConfig
 from ..ops.layers import linear
 from ..text import text_to_sequence
 
@@ -51,7 +55,9 @@ class Synthesizer:
                                  hp.n_mel_channels, hp.sampling_rate, hp.mel_fmin,
                                  hp.mel_fmax, device=self.device)
         self.model = None
-        self.waveglow_path = None
+        self.waveglow = None
+        self.waveglow_cfg = WaveGlowConfig(n_mel_channels=hp.n_mel_channels)
+        self.vocoder_dtype = None
         self.centroids_loaded = False
         self._gen = torch.Generator().manual_seed(hp.seed)
 
@@ -68,15 +74,23 @@ class Synthesizer:
 
     def load(self, checkpoint_path: str, waveglow_path: str | None = None,
              centroid_filelist: str | None = None):
-        """Load model weights and per-emotion centroids.  The checkpoint is a
-        pickle of the JAX package's numpy params (``{"params",
-        "model_state"}``, as ``tools/convert_torch_ckpt.py`` writes) or a
-        reference torch checkpoint (a state_dict, or a dict holding one
-        under ``"state_dict"``)."""
+        """Load model weights, WaveGlow (optional) and per-emotion centroids.
+        The checkpoint is a pickle of the JAX package's numpy params
+        (``{"params", "model_state"}``, as ``tools/convert_torch_ckpt.py``
+        writes) or a reference torch checkpoint (a state_dict, or a dict
+        holding one under ``"state_dict"``).  A WaveGlow pickle's own config
+        wins over ``waveglow_cfg``."""
         model = Tacotron2(self.hparams)
         model.load_state_dict(_load_state_dict(checkpoint_path, self.hparams))
         self.model = model.to(self.device).eval().requires_grad_(False)
-        self.waveglow_path = waveglow_path
+        self.waveglow = None
+        if waveglow_path:
+            sd, cfg = _load_waveglow(waveglow_path)
+            self.waveglow_cfg = cfg or self.waveglow_cfg
+            wg = WaveGlow(self.waveglow_cfg)
+            wg.load_state_dict(sd)
+            self.waveglow = wg.to(self.device).eval().requires_grad_(False)
+            self._waveglow_w_inv = self.waveglow.inverse_weights()
         if centroid_filelist is None:
             centroid_filelist = os.path.join(
                 "web", "static", "uploads", "koemo_spk_emo_all_test.txt")
@@ -279,13 +293,25 @@ class Synthesizer:
         return [r[1] for r in requests]
 
     @torch.no_grad()
-    def vocode(self, mel: np.ndarray) -> np.ndarray:
-        """mel (1, n_mel, T) -> waveform by Griffin-Lim (30 iterations)."""
-        if self.waveglow_path:
-            raise NotImplementedError(
-                "WaveGlow vocoding is not ported yet; load without waveglow_path "
-                "to vocode with Griffin-Lim")
+    def vocode(self, mel: np.ndarray, sigma: float = 0.666) -> np.ndarray:
+        """mel (1, n_mel, T) -> waveform by WaveGlow, or by Griffin-Lim (30
+        iterations) when no vocoder is loaded.
+
+        WaveGlow gets the mel padded with log-silence to a multiple of
+        ``mel_bucket_size`` frames (as the JAX package pads it) and noise
+        from a device generator seeded from the Synthesizer's; the audio is
+        trimmed to T * hop_length samples."""
         hp = self.hparams
+        if self.waveglow is not None:
+            T = mel.shape[2]
+            bucket = max(hp.mel_bucket_size, 1)
+            mel_p = np.pad(np.asarray(mel, np.float32),
+                           ((0, 0), (0, 0), (0, -(-T // bucket) * bucket - T)),
+                           constant_values=np.log(1e-5))
+            gen = torch.Generator(device=self.device).manual_seed(self._seed())
+            wav = self.waveglow.infer(torch.from_numpy(mel_p).to(self.device), sigma, gen,
+                                      self.vocoder_dtype, self._waveglow_w_inv)
+            return wav[0, :T * hp.hop_length].cpu().numpy()
         mel_lin = dynamic_range_decompression(
             torch.as_tensor(mel, device=self.device))[0]
         fb = self.stft.mel_basis
@@ -332,6 +358,19 @@ def _load_state_dict(path: str, hp) -> dict:
         return from_jax_params(blob["params"], blob["model_state"], hp)
     blob = torch.load(path, map_location="cpu", weights_only=False)
     return blob.get("state_dict", blob)
+
+
+def _load_waveglow(path: str):
+    """(state_dict, WaveGlowConfig or None).  A pickle holds the JAX
+    package's params under ``"waveglow"`` (float16 storage is cast to
+    float32) and may carry its config under ``"config"``; anything else is
+    read as a reference NVIDIA checkpoint."""
+    if path.endswith((".pkl", ".pickle")):
+        with open(path, "rb") as f:
+            blob = pickle.load(f)
+        cfg = WaveGlowConfig(**blob["config"]) if "config" in blob else None
+        return from_jax_waveglow(blob["waveglow"]), cfg
+    return from_reference_waveglow(path), None
 
 
 def _str2bool(v) -> bool:

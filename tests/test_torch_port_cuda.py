@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain twins, on the card.
 
 Kernels K1 (decode loop), K2 (STFT -> mel -> log), K3 and K4 (the
-teacher-forced recurrence, forward and backward) have no CPU mode: on a
+teacher-forced recurrence, forward and backward), K5 and K6 (the reshape
+and output-block probes) have no CPU mode: on a
 CPU tensor their wrappers run the twin, so these tests need a card and skip
 without one.  They import no JAX, so they also run where JAX is absent:
 
@@ -16,7 +17,12 @@ rounding now and then, and the flip feeds back); K2 atol 1e-4 as
 tests/test_pallas_stft.py:36; K3 and K4, outputs and every gradient of the
 recurrence, by ``chip_smoke.k34_check`` and its limits ``K34_TOL``, at
 widths whose LSTM input sizes (P+E+H = 176, 2H+E = 212) are not multiples
-of the 32-wide tiles, with B below the 64-row tile and at it.
+of the 32-wide tiles, with B below the 64-row tile and at it; K5 exactly
+(a copy plus one), on the 16-byte path and the scalar one, from a strided
+view; K6 atol 1e-5 (sum order), with rows off its 8-row tile.  WaveGlow
+(cuDNN/cuBLAS, no kernel of its own) on the card against the CPU: float32
+to 1e-5 of max |audio| (TF32 would give ~1e-3); bf16 one WaveNet to one
+bf16 ulp of its output scale (same rounding points, another sum order).
 """
 
 import numpy as np
@@ -26,8 +32,10 @@ import torch
 from _torch_port_common import TINY, n
 from chip_smoke import k1_compare, k34_check
 from tacotron2_vae_torch.config import create_hparams
+from tacotron2_vae_torch.models import waveglow as twg
 from tacotron2_vae_torch.models.tacotron2 import Tacotron2, init_weights
 from tacotron2_vae_torch.ops import decoder_loop as dl
+from tacotron2_vae_torch.ops import reshape_probe as rp
 from tacotron2_vae_torch.ops import stft_mel as sm
 from tacotron2_vae_torch.ops.layers import linear
 
@@ -102,3 +110,54 @@ def test_weight_grad_bf16_product_keeps_float32_sums(cuda_device):
     want = x.double().t() @ dg.double()
     assert got.dtype == torch.float32
     assert float((got.double() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,X,pad", [(4, 128, 32, 0), (3, 7, 5, 0), (2, 9, 12, 4)],
+                         ids=["vec4", "scalar", "strided"])
+def test_reshape_kernel_matches_twin_on_card(cuda_device, B, S, X, pad):
+    rng = np.random.RandomState(0)
+    full = torch.from_numpy(rng.randn(B, S * X + pad).astype(np.float32)).to(cuda_device)
+    x = full[:, :S * X]
+    got = rp.reshape_rows_plus_one(x, S, X)
+    torch.testing.assert_close(got, rp.reshape_rows_plus_one_plain(x, S, X), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BS,K,F,T", [(512, 128, 32, 4), (13, 40, 24, 3)], ids=["probe", "odd"])
+def test_out_block_kernel_matches_twin_on_card(cuda_device, BS, K, F, T):
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy((0.3 * rng.randn(BS, K)).astype(np.float32)).to(cuda_device)
+    w = torch.from_numpy((0.3 * rng.randn(K, F)).astype(np.float32)).to(cuda_device)
+    got = rp.out_block_matmul(x, w, T)
+    want = rp.out_block_matmul_plain(x, w, T)
+    assert got.shape == (T, BS, F)
+    np.testing.assert_allclose(n(got.cpu()), n(want.cpu()), atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_waveglow_float32_on_card_matches_cpu(cuda_device):
+    cfg = twg.WaveGlowConfig(n_flows=4, n_early_every=2, n_layers=3, n_channels=32)
+    wg = twg.init_weights(twg.WaveGlow(cfg), torch.Generator().manual_seed(0), end_scale=0.02)
+    rng = np.random.RandomState(0)
+    z = torch.from_numpy(rng.randn(1, 20 * 32, 8).astype(np.float32))
+    mel = torch.from_numpy(rng.randn(1, 80, 20).astype(np.float32) - 5)
+    with torch.no_grad():
+        want = wg.inverse(z, mel)
+        got = wg.to(cuda_device).inverse(z.to(cuda_device), mel.to(cuda_device)).cpu()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_waveglow_bf16_wavenet_on_card_matches_cpu(cuda_device):
+    cfg = twg.WaveGlowConfig(n_flows=2, n_layers=3, n_channels=32)
+    wg = twg.init_weights(twg.WaveGlow(cfg), torch.Generator().manual_seed(1), end_scale=0.05)
+    rng = np.random.RandomState(1)
+    x0 = torch.from_numpy(rng.randn(1, 4, 300).astype(np.float32))
+    cond = torch.from_numpy(rng.randn(1, 640, 300).astype(np.float32))
+    with torch.no_grad():
+        want = twg._wn(wg.WN[0], x0, cond, cfg, torch.bfloat16)
+        wn = wg.WN[0].to(cuda_device)
+        got = twg._wn(wn, x0.to(cuda_device), cond.to(cuda_device), cfg, torch.bfloat16)
+    for g, w in zip(got, want):
+        assert float((g.cpu() - w).abs().max()) <= 2 ** -8 * float(w.abs().max())

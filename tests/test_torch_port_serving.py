@@ -13,6 +13,7 @@ from scipy.io import wavfile
 
 from _torch_port_common import TINY, build, n
 from tacotron2_vae_torch import convert
+from tacotron2_vae_torch.models.waveglow import WaveGlowConfig
 from tacotron2_vae_torch.serving import synthesizer as synth_mod
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -20,6 +21,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 from convert_torch_ckpt import convert_tacotron2  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the tiny vocoder of tests/test_serving.py
+WG_CFG_ARGS = dict(n_flows=4, n_group=8, n_early_every=2, n_early_size=2, n_layers=2,
+                   n_channels=8)
 
 
 def test_weight_bridge_round_trip():
@@ -120,14 +124,37 @@ def test_batch_rows_equal_single_rows(checkpoint):
     np.testing.assert_allclose(batch[0][1], single[1], atol=1e-5)
 
 
-def test_vocode_refuses_waveglow_and_synthesizer_needs_cuda(checkpoint):
-    _, _, pkl, _, manifest = checkpoint
+def _waveglow_pickle(path, dtype=np.float32, seed=1):
+    """A self-describing WaveGlow pickle (``{"waveglow", "config"}``, as the
+    JAX package's ``tools/train_waveglow.py --export`` writes) at the tiny
+    config, with a random ``end`` so the couplings are not the identity."""
+    from tacotron2_vae_tpu.models import waveglow as jwg
+
+    cfg = jwg.WaveGlowConfig(**WG_CFG_ARGS)
+    params = jax.tree_util.tree_map(np.asarray, jwg.init(jax.random.PRNGKey(seed), cfg))
+    rng = np.random.RandomState(seed)
+    for flow in params["flows"]:
+        flow["wn"]["end"]["w"] = 0.05 * rng.randn(*flow["wn"]["end"]["w"].shape)
+    params = jax.tree_util.tree_map(lambda x: np.asarray(x, dtype), params)
+    with open(path, "wb") as f:
+        pickle.dump({"waveglow": params, "config": cfg.__dict__}, f)
+    return params
+
+
+def test_vocode_with_waveglow_and_synthesizer_needs_cuda(checkpoint):
+    tmp, hp, pkl, _, manifest = checkpoint
     from tacotron2_vae_torch.config import create_hparams
 
+    _waveglow_pickle(tmp / "wg.pkl")
     synth = synth_mod.Synthesizer(create_hparams(TINY), device="cpu")
-    synth.load(str(pkl), waveglow_path="waveglow.pt", centroid_filelist=str(manifest))
-    with pytest.raises(NotImplementedError):
-        synth.vocode(np.zeros((1, 80, 4), np.float32))
+    synth.load(str(pkl), waveglow_path=str(tmp / "wg.pkl"), centroid_filelist=str(manifest))
+    mel = np.random.RandomState(0).randn(1, 80, 70).astype(np.float32)
+    wav = synth.vocode(mel)
+    assert wav.shape == (70 * hp.hop_length,) and np.isfinite(wav).all()
+    assert not np.array_equal(wav, synth.vocode(mel))  # fresh noise per call
+    out = synth.synthesize("안녕하세요.", str(tmp / "wg_out.wav"), False, None, [1, 0, 0, 0])
+    sr, data = wavfile.read(out)
+    assert sr == 16000 and len(data) % hp.hop_length == 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             synth_mod.Synthesizer()
@@ -172,3 +199,54 @@ def test_module_tree_has_reference_names():
               "speaker_embedding.linear_layer.weight"):
         assert k in keys, k
     assert n(model.decoder.prenet.layers[0].linear_layer.weight).shape == (32, 80)
+
+
+def test_waveglow_pickle_config_wins_and_float16_is_cast(checkpoint):
+    tmp, _, pkl, _, manifest = checkpoint
+    from tacotron2_vae_torch.config import create_hparams
+
+    params = _waveglow_pickle(tmp / "wg16.pkl", np.float16, seed=3)
+    synth = synth_mod.Synthesizer(create_hparams(TINY), device="cpu")
+    assert synth.waveglow_cfg == WaveGlowConfig()
+    synth.load(str(pkl), waveglow_path=str(tmp / "wg16.pkl"), centroid_filelist=str(manifest))
+    assert synth.waveglow_cfg == WaveGlowConfig(**WG_CFG_ARGS)
+    sd = synth.waveglow.state_dict()
+    assert all(v.dtype == torch.float32 for v in sd.values())
+    w = params["flows"][1]["wn"]["in"][1]["w"]  # (k, in, out) float16
+    np.testing.assert_array_equal(sd["WN.1.in_layers.1.weight"].numpy(),
+                                  w.astype(np.float32).transpose(2, 1, 0))
+
+
+def test_vocode_matches_jax_synthesizer(checkpoint):
+    """sigma=0 makes both vocoders deterministic (their noise differs)."""
+    tmp, _, pkl, _, manifest = checkpoint
+    from tacotron2_vae_torch.config import create_hparams
+    from tacotron2_vae_tpu.config import create_hparams as jax_hparams
+    from tacotron2_vae_tpu.serving.synthesizer import Synthesizer as JaxSynthesizer
+
+    _waveglow_pickle(tmp / "wg_parity.pkl", seed=4)
+    ours = synth_mod.Synthesizer(create_hparams(TINY), device="cpu")
+    ours.load(str(pkl), waveglow_path=str(tmp / "wg_parity.pkl"),
+              centroid_filelist=str(manifest))
+    ref = JaxSynthesizer(jax_hparams(TINY))
+    ref.load(str(pkl), str(tmp / "wg_parity.pkl"), centroid_filelist=str(manifest))
+    # 70 frames pad to 128 with log(1e-5): the padding reaches the last frames
+    mel = np.random.RandomState(2).randn(1, 80, 70).astype(np.float32)
+    want = ref.vocode(mel, sigma=0.0)
+    got = ours.vocode(mel, sigma=0.0)
+    assert got.shape == want.shape == (70 * 256,)
+    assert float(np.abs(want).max()) > 1e-3
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
+
+
+def test_griffin_lim_without_a_vocoder(checkpoint):
+    _, hp, pkl, _, manifest = checkpoint
+    from tacotron2_vae_torch.config import create_hparams
+
+    synth = synth_mod.Synthesizer(create_hparams(TINY), device="cpu")
+    synth.load(str(pkl), centroid_filelist=str(manifest))
+    assert synth.waveglow is None
+    mel = np.full((1, 80, 12), -4.0, np.float32)
+    wav = synth.vocode(mel)
+    # Griffin-Lim's istft gives (T - 1) hops; WaveGlow gives T
+    assert wav.shape == (11 * hp.hop_length,) and np.isfinite(wav).all()
