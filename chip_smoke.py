@@ -17,7 +17,11 @@
    recurrence through K4 against the same gradients through the twin;
    K5 and K6 (the reshape and output-block probes) at the probes' shapes,
    on the probes' inputs and on random ones.  Times each kernel, its twin
-   and, for K2, K5 and K6, one library call.
+   and, for K2, K5 and K6, one library call (K2 and its library call in
+   turns, 5 rounds, at the serve shape and at a training clip); for K3/K4
+   also the device time per step of each of their kernels and, as a
+   yardstick the port never calls, one bf16 ``torch.mm`` per LSTM product
+   shape.
 3. Train: 11 ``make_train_step`` steps on a fixed full-width batch (B=64,
    S=128, T=512, bf16) with random weights from the seed (ms/step, mel
    frames/s, peak memory; the loss must fall), then the real entry point
@@ -83,6 +87,10 @@ K2_TOL = 1e-4                                    # tests/test_pallas_stft.py:36
 # 3 s (188 frames, a multiple of the kernel's 4-frame block) and the serve
 # phase's 2 s reference clip (126 frames: a partial last block)
 K2_SECONDS = (3, 2)
+# K2 against its library call, timed in turns (kernel, library, library,
+# kernel) for K2_ROUNDS rounds: at the serve shape (3 s) and at a training
+# clip (4 s, the middle of train_entry's 2-6 s clips)
+K2_TURN_SECONDS, K2_ROUNDS = (3, 4), 5
 # K5: B rows of S*X; the probes' (S, X) shapes, the first one timed
 K5_B, K5_SHAPES = 4, ((128, 128), (128, 32), (128, 256))
 K6_SHAPE = (512, 128, 32, 4)                     # BS, K, F, T
@@ -303,20 +311,59 @@ def kernels_phase(model, hp, device):
                 return torch.log(torch.clamp(fb @ spec.abs(), min=1e-5))
 
             k2.update(library_max_abs_err=float((library()[None] - want).abs().max()),
-                      ms=cuda_ms(lambda: sm.mel_spectrogram_fused(wav, *key), 20),
-                      plain_ms=cuda_ms(lambda: sm.mel_spectrogram_plain(wav, *key), 20),
-                      library_ms=cuda_ms(library, 20))
+                      plain_ms=cuda_ms(lambda: sm.mel_spectrogram_plain(wav, *key), 20))
             k2["bound_ms"], k2["bound_by"] = k2_bound(n, frames, (window, costab, fb))
             k2_main = k2
         print(json.dumps(k2), flush=True)
         rows.append(k2)
         failed += [k2] if k2["fails"] else []
         k2_err = max(k2_err, err)
+    turns = k2_turns(hp, key, window, fb, rng, device)
+    rows += turns
+    k2_main.update(ms=turns[0]["ms"], library_ms=turns[0]["library_ms"])
     if failed:
         raise AssertionError(f"{len(failed)} kernel check(s) disagree with the twin: {failed}")
     report["K1"] = dict(k1_main, max_abs_err=k1_err)
     report["K2"] = dict(k2_main, max_abs_err=k2_err)
     return report, rows
+
+
+def k2_turns(hp, key, window, fb, rng, device):
+    """K2 and its library call (``torch.stft`` + the mel product + log) timed
+    in turns, kernel, library, library, kernel, for K2_ROUNDS rounds (20
+    calls each, CUDA events) on one synthetic wav per K2_TURN_SECONDS: the
+    median and the spread (min, max) of each."""
+    import numpy as np
+    import torch
+    from tacotron2_vae_torch.ops import stft_mel as sm
+
+    rows = []
+    for seconds in K2_TURN_SECONDS:
+        n = seconds * hp.sampling_rate
+        t = np.arange(n) / hp.sampling_rate
+        wav = torch.from_numpy((0.4 * np.sin(2 * np.pi * 220 * t)
+                                + 0.01 * rng.randn(n)).astype(np.float32)).to(device)
+
+        def kernel():
+            return sm.mel_spectrogram_fused(wav, *key)
+
+        def library():
+            spec = torch.stft(wav, hp.filter_length, hp.hop_length, hp.win_length, window,
+                              center=True, pad_mode="reflect", return_complex=True)
+            return torch.log(torch.clamp(fb @ spec.abs(), min=1e-5))
+
+        k, lib = [], []
+        for _ in range(K2_ROUNDS):
+            k.append(cuda_ms(kernel, 20))
+            lib += [cuda_ms(library, 20), cuda_ms(library, 20)]
+            k.append(cuda_ms(kernel, 20))
+        row = {"kernel": "K2", "turns": "kernel, library, library, kernel", "seconds": seconds,
+               "rounds": K2_ROUNDS, "ms": float(np.median(k)), "ms_spread": [min(k), max(k)],
+               "library_ms": float(np.median(lib)), "library_ms_spread": [min(lib), max(lib)],
+               "ms_each": k, "library_ms_each": lib, "fails": []}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
 
 
 # ------------------------------------------------ K5 / K6 (the probes)
@@ -574,13 +621,54 @@ def k34_check(dec, B, S, T, lengths, dtype_name, dropout_on, device, timed):
     row["K4_max_abs_err"] = max(float((a.float() - b.float()).abs().max())
                                 for a, b in zip(out_k, out_t))
     if timed:
-        row["K3_ms"] = cuda_ms(lambda: tf.teacher_fwd(w, pn, mem, pm, add, masks), 3)
+        from tacotron2_vae_torch.profile_train import mm_yardstick
+
+        def fwd():
+            return tf.teacher_fwd(w, pn, mem, pm, add, masks)
+
+        def bwd():
+            return tf.teacher_bwd(*bwd_args)
+
+        row["K3_ms"] = cuda_ms(fwd, 3)
         row["K3_plain_ms"] = cuda_ms(lambda: tf.teacher_fwd_plain(w, pn, mem, pm, add, masks), 1)
-        row["K4_ms"] = cuda_ms(lambda: tf.teacher_bwd(*bwd_args), 3)
+        row["K4_ms"] = cuda_ms(bwd, 3)
         row["K4_plain_ms"] = cuda_ms(lambda: tf.teacher_bwd_plain(*bwd_args), 1)
         row["K3_bound_ms"], row["K3_bound_by"] = k3_bound(w, B, S, T, dtype_name, masks)
         row["K4_bound_ms"], row["K4_bound_by"] = k4_bound(w, B, S, T, dtype_name, masks)
+        for k, fn in (("K3", fwd), ("K4", bwd)):
+            row[f"{k}_us_per_step_by_kernel"] = kernel_breakdown(fn, T)
+        row["torch_mm_ms"] = mm_yardstick(device)
     return row
+
+
+def kernel_breakdown(fn, steps):
+    """Device microseconds per step of each kernel of one call of ``fn``
+    (a K3 or K4 call launched kernel by kernel, not from its CUDA graph),
+    by ``torch.profiler``; "device" is their sum."""
+    import re
+
+    import torch
+    from tacotron2_vae_torch.ops import teacher_fwd as tf
+
+    tf.USE_GRAPH = False
+    try:
+        fn()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        tf.USE_GRAPH = True
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = re.sub(r"^void |\(anonymous namespace\)::", "", evt.key)
+        name = re.split(r"[(<]", name)[0].split("::")[-1] or evt.key[:40]
+        out[name] = out.get(name, 0.0) + evt.device_time_total / steps
+    out["device"] = sum(out.values())
+    return out
 
 
 def k34_phase(model, device):
@@ -654,6 +742,7 @@ def steady_steps(hp, device):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tf.teacher_fwd.launches = tf.teacher_bwd.launches = 0
+    captures = tf.graph_captures()
     metrics, times = [], []
     for i in range(TRAIN_STEPS + 1):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -663,13 +752,14 @@ def steady_steps(hp, device):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     launches = {"K3": tf.teacher_fwd.launches, "K4": tf.teacher_bwd.launches}
+    captures = {k: v - captures[k] for k, v in tf.graph_captures().items()}
     B, S, T = TRAIN_SHAPE
     ms = sum(times[1:]) / TRAIN_STEPS
     row = {"phase": "train_steady", "B": B, "S": S, "T": T, "steps": TRAIN_STEPS,
            "ms_per_step": ms, "ms_per_step_each": times, "mel_frames_per_s": B * T / ms * 1e3,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "loss": [m["loss"] for m in metrics], "grad_norm": [m["grad_norm"] for m in metrics],
-           "launches": launches}
+           "launches": launches, "graph_captures": captures}
     print(json.dumps(row), flush=True)
     losses = row["loss"]
     if not all(math.isfinite(v) for v in losses + row["grad_norm"]):

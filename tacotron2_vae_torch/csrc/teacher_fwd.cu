@@ -11,33 +11,55 @@
 //
 // What bounds it on an H100: the two LSTM products, (B x 1792) . (1792 x
 // 4096) and (B x 2560) . (2560 x 4096) per step at the defaults: 2.35
-// GFLOP per step at B=64 (1.2 TFLOP over T=512); against the bf16 tensor
-// rate that is ~1.2 ms per call, against the 36 MB of bf16 weights read
-// every step ~5.6 ms.  In bf16 the products run on the tensor cores
-// (mma.sync m16n8k16, one 16 x 32 tile per warp, no TMA or pipelining), so
-// tile loads and the per-step dependency chain bound them; in float32 they
-// run in FFMA (67 TFLOP/s peak, ~18 ms at best).
+// GFLOP per step at B=64 (1.2 TFLOP over T=512), ~1.2 ms per call at the
+// bf16 tensor rate; the 36 MB of bf16 weights read every step (most of it
+// from the 50 MB L2); and the float32 attention (~0.11 GFLOP per step).
+// Every step depends on the one before, so a step is a chain of short
+// kernels and its latency, not the card's rates, is what a call costs.
 //
-// Design: per step five kernels, launched by the host loop in
-// t2v_teacher_fwd on the caller's stream (one ctypes call per direction):
-//   lstm_gemm attention LSTM product (lstm_gemm_tc in bf16): each block
-//             owns 8 hidden units, i.e.
-//             their 4 gate columns (32 columns of the (K, 4H) weight), for
-//             all B <= 64 rows and one of kSplit K-chunks (512 blocks at
-//             the defaults); 128 threads, each 4 rows x (4 gates of one
-//             unit); 16-byte loads one tile ahead.  The input rows are read
-//             straight from the output streams of the previous step (no
-//             concatenation copies), rounded to the stream dtype as they
-//             are staged.
-//   lstm_cell sums the K-chunk partials in order, adds the bias, stores g in
-//             the stream dtype, updates the cell in float32, applies the
-//             dropout masks.
-//   att_fwd   one block of 1024 threads per row: query, location conv,
-//             loc_dense, energies, mask, softmax, context, w_cum += w
-//             (teacher_common.cuh).
-//   lstm_gemm + lstm_cell  the decoder LSTM on [h_att_t, ctx_t, h_dec_{t-1}].
-// Per-step kernels were chosen over a persistent kernel for the reason
-// K1 gives (different parallel layouts per phase, grid-wide barriers).
+// Design: per step four kernels (bf16 stream), launched by the host loop in
+// t2v_teacher_fwd and replayed from one CUDA graph of the whole loop:
+//   lstm_tc   attention LSTM product on wgmma: a CTA owns 64 hidden units,
+//             i.e. all four gate columns of them (N = 256 = 4 x 64, four
+//             TMA boxes of the (K, 4H) weight read MN-major as stored, no
+//             transposed copy, marked evict-last in L2), for all B <= 64
+//             rows (the warpgroup's M = 64; rows past B are zeros), and one
+//             of kTcSplit reduction chunks; a producer warp keeps a 2-stage
+//             TMA ring of 64-deep tiles ahead of one consumer warpgroup (two
+//             CTAs an SM: at one an SM only 15 of the 16 clusters of 8 fit
+//             at once).  The kTcSplit CTAs of a unit block form a cluster:
+//             their partial tiles are added in order through distributed
+//             shared memory, each CTA finishing 8 of the 64 units: bias,
+//             gates stored in bf16, the cell update in float32, dropout
+//             masks, and h written in float32 and as the bf16 operand of
+//             the next products (rounded where the scan rounds).  The
+//             activations are read as bf16 operand matrices written once
+//             per step (Xa, Xd: [prenet|ctx|h_att], [h_att|ctx|h_dec],
+//             double-buffered by step parity), not re-read in float32 by
+//             every column block.
+//   att_query q = h_att . query_w for all rows at once (query_w read once a
+//             step), in kQChunk partials the attention adds in order.
+//   att_fwd   the attention of a row on a cluster of kNC CTAs, each owning
+//             S / kNC positions: location conv, the (S x F) . (F x A)
+//             loc_dense product register-tiled 4 x 4 per thread, tanh, v,
+//             mask; softmax max and sum and the context partials exchanged
+//             through distributed shared memory (sums in rank order).  B =
+//             64 rows occupy 256 CTAs in one wave.
+//   lstm_tc   the decoder LSTM on [h_att_t, ctx_t, h_dec_{t-1}].
+// The float32 stream keeps FFMA products (lstm_gemm + lstm_cell, split
+// over kSplit reduction chunks summed in order); it is checked, not tuned.
+// A CUDA graph of the step loop was chosen over a persistent kernel with
+// grid barriers: the phases need different parallel layouts and cluster
+// shapes (8-CTA split-K clusters, 4-CTA attention clusters) that one
+// cooperative grid cannot take.  Measured at B=64, S=128, T=512, bf16 (H100
+// 80GB HBM3, 700 W; PERF.md): launched kernel by kernel a step leaves 6.6
+// to 6.7 us (K3) and 9.4 to 10.4 us (K4) between its kernels, replayed from
+// a graph about 1 us; capturing and instantiating a call's 2,051- or
+// 3,074-node graph costs 12-16 or 23-34 ms, so the graphs of the last four
+// argument sets are kept (launch_loop in teacher_common.cuh): a training
+// loop's tensors come back at the same few addresses, and its steady steps
+// captured 2 graphs per direction in 11 steps.
+// No float atomics: every sum has one owner and a fixed order.
 
 #include "teacher_common.cuh"
 
@@ -46,10 +68,13 @@ namespace {
 using namespace t2v;
 
 constexpr int kRows = 64;     // batch rows per tile (all of B)
-constexpr int kUnits = 8;     // hidden units per block
-constexpr int kBK = 32;       // k per shared tile
+constexpr int kUnits = 8;     // hidden units per block (float32 products)
+constexpr int kBK = 32;       // k per shared tile (float32 products)
 constexpr int kGemmThreads = 128;
 constexpr int kXs = kRows + 4;  // padded row stride of the staged x tile
+constexpr int kTcUnits = 64;  // hidden units per wgmma CTA (N = 4 x 64)
+constexpr int kTcStages = 2;  // TMA ring depth: 81 KB of shared memory, two CTAs an SM
+constexpr int kPartLd = 4 * kTcUnits + 8;  // row stride of a CTA's partial tile
 
 struct Seg3 {
   const float* p[3];
@@ -137,74 +162,6 @@ lstm_gemm(Seg3 x, int K, int kchunk, const T* __restrict__ W, int H, int B,
   }
 }
 
-// The bf16 form of lstm_gemm on the tensor cores: x rounded to bf16 as it
-// is staged, W tiles transposed into (column, k) order in shared memory;
-// each of the 4 warps computes 16 rows x the block's 32 columns with
-// mma.sync m16n8k16 (float32 accumulation), column n = gate * 8 + unit.
-__global__ void __launch_bounds__(kGemmThreads)
-lstm_gemm_tc(Seg3 x, int K, int kchunk, const __nv_bfloat16* __restrict__ W, int H, int B,
-             float* __restrict__ part) {
-  constexpr int kLd = kBK + 8;  // bf16 row stride: conflict-free fragment reads
-  __shared__ __align__(16) __nv_bfloat16 xs[kRows * kLd];
-  __shared__ __align__(16) __nv_bfloat16 ws[4 * kUnits * kLd];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int j0 = blockIdx.x * kUnits, H4 = 4 * H;
-  const int kbeg = blockIdx.y * kchunk, kend = min(K, kbeg + kchunk);
-  float acc[4][4];
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
-  float4 xr[4];
-  uint4 wr;
-  const int wk = tid / 4, wg = tid % 4;  // this thread's weight vector: row k0+wk, gate wg
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = tid + u * kGemmThreads, row = i / 8, k = k0 + 4 * (i % 8);
-      xr[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (row < B && k < kend) {
-        int seg = 0, kk = k;
-        while (kk >= x.w[seg]) kk -= x.w[seg++];
-        xr[u] = *reinterpret_cast<const float4*>(x.p[seg] + (size_t)row * x.ld[seg] + kk);
-      }
-    }
-    const int k = k0 + wk;
-    wr = k < kend ? *reinterpret_cast<const uint4*>(W + (size_t)k * H4 + wg * H + j0)
-                  : make_uint4(0u, 0u, 0u, 0u);
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = tid + u * kGemmThreads, row = i / 8, kq = 4 * (i % 8);
-      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(xs + row * kLd + kq);
-      dst[0] = __floats2bfloat162_rn(xr[u].x, xr[u].y);
-      dst[1] = __floats2bfloat162_rn(xr[u].z, xr[u].w);
-    }
-    const __nv_bfloat16* w8 = reinterpret_cast<const __nv_bfloat16*>(&wr);
-#pragma unroll
-    for (int u = 0; u < 8; ++u) ws[(wg * kUnits + u) * kLd + wk] = w8[u];
-  };
-  if (kbeg < kend) load(kbeg);
-  for (int k0 = kbeg; k0 < kend; k0 += kBK) {
-    store();
-    __syncthreads();
-    if (k0 + kBK < kend) load(k0 + kBK);
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 16) warp_mma_16x32(acc, xs, kLd, 16 * warp, ws, kLd, ks);
-    __syncthreads();
-  }
-  float* out = part + (size_t)blockIdx.y * B * H4;
-  const int g = lane >> 2, t2 = 2 * (lane & 3);
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = 16 * warp + g + (e >= 2 ? 8 : 0), n = nt * 8 + t2 + (e & 1);
-      if (row < B) out[(size_t)row * H4 + (n / kUnits) * H + j0 + n % kUnits] = acc[nt][e];
-    }
-}
-
 // LSTM cell from the partial sums, one thread per (row, unit): g = sum of
 // the kSplit partials (in order) + bias, stored in the stream dtype;
 // c = sig(f) c_prev + sig(i) tanh(g), h = sig(o) tanh(c); then h *= mh,
@@ -236,123 +193,316 @@ __global__ void lstm_cell(const float* __restrict__ part, int nsplit,
   if (c_next != nullptr) c_next[i] = c;
 }
 
-struct FwdArgs {
-  Dims d;
-  const float *wq, *locw, *ldw, *v, *mem, *pmem, *addmask;
-  const float* zeros;
-  float *h_att, *ctx, *w, *wcum;
+
+// The cell of one LSTM at step t, applied by the clusters of lstm_tc.
+struct Cell {
+  const float* bias;            // (4H)
+  const float* c_prev;          // (B, H)
+  float* c_next;                // (B, H) or null (last step)
+  float* h_out;                 // (B, H) float32
+  __nv_bfloat16* g_out;         // (B, 4H) the gates, stored in bf16
+  const __nv_bfloat16 *mh, *mc;  // dropout masks (B, H) or null
+  __nv_bfloat16* x1;            // bf16 copy of h into an operand matrix (row stride ld1)
+  int ld1;
+  __nv_bfloat16* x2;            // a second copy, or null
+  int ld2;
+  const float* pn;              // the next step's prenet rows (B, P) or null
+  __nv_bfloat16* pn_dst;        // their bf16 copy (row stride ldp)
+  int P, ldp;
 };
 
-// Attention for one row per block at step t.
-__global__ void __launch_bounds__(kAttThreads) att_fwd(FwdArgs a, int t) {
+// bf16 LSTM product and cell: gates (B, 4H) = X (64 x K, bf16, zero rows
+// past B) . W (K, 4H) + bias for the CTA's 64 units, split over the
+// kTcSplit CTAs of a cluster (see the note at the top).  X[par] and W are
+// TMA maps.
+__global__ void __cluster_dims__(1, kTcSplit, 1) __launch_bounds__(kTcThreads)
+lstm_tc(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw, int par,
+        int K, int H, int B, Cell c) {
+  extern __shared__ uint8_t smraw[];
+  using R = TcRing<4 * kTcUnits, kTcStages>;
+  uint8_t* ring = align1024(smraw);
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank(), j0 = blockIdx.x * kTcUnits;
+  const int ntiles = cdiv(K, kTileK), per = cdiv(ntiles, kTcSplit);
+  const int it0 = min(ntiles, rank * per), it1 = min(ntiles, it0 + per);
+  tc_init_barriers<4 * kTcUnits, kTcStages>(ring);
+  float acc[2 * kTcUnits];
+#pragma unroll
+  for (int i = 0; i < 2 * kTcUnits; ++i) acc[i] = 0.0f;
+  const CUtensorMap *pmx = &mx, *pmw = &mw;
+  // MN-major weight tile: 64-unit boxes (kBBytes / 4 apart) of 64 k rows,
+  // 8-row k groups 1 KB apart
+  tc_mainloop<4 * kTcUnits, kTcStages, true>(
+      ring, it0, it1, R::kBBytes / 4, 1024,
+      [&](uint8_t* sa, uint8_t* sb, uint64_t* bar, int it) {
+        const int k0 = it * kTileK;
+        tma_3d(sa, pmx, bar, k0, 0, par);
+#pragma unroll
+        for (int g = 0; g < 4; ++g) tma_2d_keep(sb + g * (R::kBBytes / 4), pmw, bar, g * H + j0, k0);
+      },
+      acc);
+  __syncthreads();  // every stage consumed: the ring becomes the partial tile
+  float* part = reinterpret_cast<float*>(ring);
+  if (threadIdx.x < 128) tc_store<4 * kTcUnits>(acc, part, kPartLd);
+  // this CTA finishes units [8 rank, 8 rank + 8) of the block, 4 of one row
+  // a thread; what the cell reads besides the gates is loaded before the
+  // cluster barrier, the partials after it (added in rank order)
+  constexpr int upc = kTcUnits / kTcSplit, ipr = upc / 4;
+  static_assert(kRows * ipr <= kTcThreads, "one epilogue item a thread");
+  const int b = threadIdx.x / ipr, j = j0 + rank * upc + 4 * (threadIdx.x % ipr), H4 = 4 * H;
+  const bool mine = threadIdx.x < kRows * ipr && b < B && j < H;
+  float bias[4][4], cp[4], mhv[4], mcv[4];
+  if (mine) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) bias[g][e] = c.bias[g * H + j + e];
+      const size_t bj = (size_t)b * H + j + e;
+      cp[e] = c.c_prev[bj];
+      mhv[e] = c.mh != nullptr ? __bfloat162float(c.mh[bj]) : 1.0f;
+      mcv[e] = c.mh != nullptr ? __bfloat162float(c.mc[bj]) : 1.0f;
+    }
+  }
+  cl.sync();
+  if (mine) {
+    float4 gs[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) gs[g] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int r = 0; r < kTcSplit; ++r) {
+      const float* pr = part + b * kPartLd + (j - j0);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float4 v = ld_dsmem4(pr + g * kTcUnits, r);
+        gs[g].x += v.x;
+        gs[g].y += v.y;
+        gs[g].z += v.z;
+        gs[g].w += v.w;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float gv[4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float4& v = gs[g];
+        gv[g] = (e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w) + bias[g][e];
+        c.g_out[(size_t)b * H4 + g * H + j + e] = __float2bfloat16(gv[g]);
+      }
+      const size_t bj = (size_t)b * H + j + e;
+      float cc = sigm(gv[1]) * cp[e] + sigm(gv[0]) * tanhf(gv[2]);
+      float h = sigm(gv[3]) * tanhf(cc);
+      if (c.mh != nullptr) {
+        h *= mhv[e];
+        cc *= mcv[e];
+      }
+      c.h_out[bj] = h;
+      if (c.c_next != nullptr) c.c_next[bj] = cc;
+      c.x1[(size_t)b * c.ld1 + j + e] = __float2bfloat16(h);
+      if (c.x2 != nullptr) c.x2[(size_t)b * c.ld2 + j + e] = __float2bfloat16(h);
+    }
+  }
+  if (c.pn != nullptr) {
+    const int stride = gridDim.x * gridDim.y * blockDim.x;
+    for (int i = (blockIdx.y * gridDim.x + blockIdx.x) * blockDim.x + threadIdx.x; i < B * c.P;
+         i += stride)
+      c.pn_dst[(size_t)(i / c.P) * c.ldp + i % c.P] = __float2bfloat16(c.pn[i]);
+  }
+  cl.sync();  // the partial tiles stay until every CTA of the cluster has read them
+}
+
+// dst[b][k] = bf16(src[b][k]) for a (B, P) float32 block (row stride ld).
+__global__ void round_rows(const float* __restrict__ src, int B, int P,
+                           __nv_bfloat16* __restrict__ dst, int ld) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < B * P; i += gridDim.x * blockDim.x)
+    dst[(size_t)(i / P) * ld + i % P] = __float2bfloat16(src[i]);
+}
+
+struct FwdAtt {
+  Dims d;
+  const float *wq, *qpart, *locw, *ldw, *v, *mem, *pmem, *addmask, *zeros;
+  float *w, *wcum, *ctx;
+  __nv_bfloat16 *xd, *xa;  // bf16 copies of ctx_t at its operand columns, or null
+  int ldd, lda;
+};
+
+// Attention of row blockIdx.y at step t on a cluster of kNC CTAs.
+__global__ void __cluster_dims__(kNC, 1, 1) __launch_bounds__(kAttThreads)
+att_fwd(FwdAtt a, int t) {
   extern __shared__ __align__(16) float sm[];
+  cg::cluster_group cl = cg::this_cluster();
   const Dims& d = a.d;
-  const AttSmem s(sm, d);
-  const int b = blockIdx.x, S = d.S, E = d.E;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int rank = (int)cl.block_rank(), b = blockIdx.y, S = d.S, E = d.E;
+  const AttGeo g(d, rank);
+  const AttSmem s(sm, d, g, false);
   const size_t row = (size_t)t * d.B + b;
   const float* w_prev = t > 0 ? a.w + (row - d.B) * S : a.zeros;
   float* wcum = a.wcum + (size_t)b * S;
-  att_stage(s, d, a.h_att + row * d.H, w_prev, wcum, a.ldw, a.locw);
-  att_query_loc(s, d, a.wq);
-
-  const float* pm = a.pmem + (size_t)b * S * d.A;
-  for (int p = warp; p < S; p += nw) {
-    float acc = 0.0f;
-    for (int u = lane; u < d.A; u += 32) acc += a.v[u] * att_tanh(s, d, pm, p, u);
-    acc = warp_sum(acc);
-    if (lane == 0) s.e[p] = acc + a.addmask[(size_t)b * S + p];
+  att_stage(s, d, g, b, a.qpart, a.v, w_prev, wcum, a.locw, a.ldw);
+  __syncthreads();
+  att_loc(s, d, g);
+  __syncthreads();
+  const float* pm = a.pmem + ((size_t)b * S + g.s0) * d.A;
+  for (int i = threadIdx.x; i < (g.Sc4 / 4) * g.nAq; i += blockDim.x) {
+    const int pq = i / g.nAq, aq = i - pq * g.nAq;
+    float ta[4][4];
+    att_tanh_tile(s, d, g, pm, pq, aq, ta);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc = fmaf(s.v[4 * aq + c], ta[r][c], acc);
+      s.epart[(4 * pq + r) * (g.nAq + 1) + aq] = acc;
+    }
   }
   __syncthreads();
   float m = -3.402823466e38f;
-  for (int p = threadIdx.x; p < S; p += blockDim.x) m = fmaxf(m, s.e[p]);
+  for (int p = threadIdx.x; p < g.n; p += blockDim.x) {
+    float acc = 0.0f;
+    for (int aq = 0; aq < g.nAq; ++aq) acc += s.epart[p * (g.nAq + 1) + aq];
+    const float e = acc + a.addmask[(size_t)b * S + g.s0 + p];
+    s.e[p] = e;
+    m = fmaxf(m, e);
+  }
   m = block_reduce<true>(m, s.red);
+  if (threadIdx.x == 0) s.slot[0] = m;
+  cl.sync();  // also: every CTA has staged its w_cum halo before any update below
+  float mx = -3.402823466e38f;
+  for (int r = 0; r < kNC; ++r) mx = fmaxf(mx, *cl.map_shared_rank(s.slot, r));
   float sum = 0.0f;
-  for (int p = threadIdx.x; p < S; p += blockDim.x) {
-    const float ex = expf(s.e[p] - m);
+  for (int p = threadIdx.x; p < g.n; p += blockDim.x) {
+    const float ex = expf(s.e[p] - mx);
     s.e[p] = ex;
     sum += ex;
   }
   sum = block_reduce<false>(sum, s.red);
-  for (int p = threadIdx.x; p < S; p += blockDim.x) {
-    const float wt = s.e[p] / sum;
+  if (threadIdx.x == 0) s.slot[1] = sum;
+  cl.sync();
+  float tot = 0.0f;
+  for (int r = 0; r < kNC; ++r) tot += *cl.map_shared_rank(s.slot + 1, r);
+  for (int p = threadIdx.x; p < g.n; p += blockDim.x) {
+    const float wt = s.e[p] / tot;
     s.e[p] = wt;
-    a.w[row * S + p] = wt;
-    wcum[p] += wt;
+    a.w[row * S + g.s0 + p] = wt;
+    wcum[g.s0 + p] += wt;
   }
   __syncthreads();
-  // context = w . memory, positions split over npc groups of threads
-  const float* mem = a.mem + (size_t)b * S * E;
-  const int npc = (int)blockDim.x >= E ? (int)blockDim.x / E : 1;
-  for (int i = threadIdx.x; i < npc * E; i += blockDim.x) {
-    const int k = i % E, pp = i / E;
+  att_context(a.mem + ((size_t)b * S + g.s0) * E, s.e, g.n, E, s.csc, s.cpart);
+  cl.sync();
+  // this CTA adds the context partials of its slice of E, in rank order
+  const int ec = cdiv(E, kNC), k1 = min(E, (rank + 1) * ec);
+  for (int k = rank * ec + threadIdx.x; k < k1; k += blockDim.x) {
     float acc = 0.0f;
-#pragma unroll 4
-    for (int p = pp; p < S; p += npc) acc = fmaf(s.e[p], mem[(size_t)p * E + k], acc);
-    s.part[i] = acc;
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < E; k += blockDim.x) {
-    float acc = 0.0f;
-    for (int pp = 0; pp < npc; ++pp) acc += s.part[pp * E + k];
+    for (int r = 0; r < kNC; ++r) acc += cl.map_shared_rank(s.cpart, r)[k];
     a.ctx[row * E + k] = acc;
+    if (a.xd != nullptr) {
+      a.xd[(size_t)b * a.ldd + k] = __float2bfloat16(acc);
+      a.xa[(size_t)b * a.lda + k] = __float2bfloat16(acc);
+    }
   }
+  cl.sync();
 }
 
-cudaError_t smem_attr(const void* fn, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
+struct Scratch {
+  float *part, *qpart;
+  __nv_bfloat16 *xa, *xd;  // (2, 64, kap) and (2, 64, kdp) bf16 operand matrices
+};
+
+GraphCache graphs;  // the step loops of the last calls, as CUDA graphs
 
 template <typename T>
 cudaError_t run(const Dims& d, const void* attn_w_, const float* attn_b, const void* dec_w_,
-                const float* dec_b, FwdArgs fa, const float* prenet, const void* m1_,
-                const void* m2_, const void* m3_, const void* m4_, float* h_dec,
-                void* g_att_, void* g_dec_, float* c_att, float* c_dec, float* part,
-                cudaStream_t st) {
+                const float* dec_b, FwdAtt fa, const float* prenet, const void* m1_,
+                const void* m2_, const void* m3_, const void* m4_, float* h_dec, float* h_att,
+                void* g_att_, void* g_dec_, float* c_att, float* c_dec, Scratch sc, bool graph,
+                const std::vector<uint64_t>& key, cudaStream_t st) {
   const T* attn_w = static_cast<const T*>(attn_w_);
   const T* dec_w = static_cast<const T*>(dec_w_);
   const T *m1 = static_cast<const T*>(m1_), *m2 = static_cast<const T*>(m2_);
   const T *m3 = static_cast<const T*>(m3_), *m4 = static_cast<const T*>(m4_);
   T* g_att = static_cast<T*>(g_att_);
   T* g_dec = static_cast<T*>(g_dec_);
-  const size_t smem = (size_t)AttSmem::floats(d, kAttThreads) * sizeof(float);
-  cudaError_t err = smem_attr((const void*)att_fwd, smem);
+  constexpr bool kTc = sizeof(T) == 2;
+  const size_t att_smem = (size_t)AttSmem::fwd_floats(d) * sizeof(float);
+  const size_t tc_smem = TcRing<4 * kTcUnits, kTcStages>::kSmemBytes;
+  cudaError_t err = smem_attr((const void*)att_fwd, att_smem);
+  if (err == cudaSuccess && kTc) err = smem_attr((const void*)lstm_tc, tc_smem);
   if (err != cudaSuccess) return err;
-  const int B = d.B, H = d.H, E = d.E, P = d.P;
+  const int B = d.B, H = d.H, E = d.E, P = d.P, A = d.A;
   const size_t BH = (size_t)B * H;
-  const int grid = H / kUnits, cells = (B * H + 255) / 256;
-  const int Ka = P + E + H, Kd = 2 * H + E;
-  auto chunk = [](int K) { return (K / kSplit + kBK - 1) / kBK * kBK; };
-  // bf16 products on the tensor cores, float32 ones in FFMA
-  auto gemm = [&](const Seg3& x, int K, const T* W) {
-    if constexpr (sizeof(T) == 2)
-      lstm_gemm_tc<<<dim3(grid, kSplit), kGemmThreads, 0, st>>>(x, K, chunk(K), W, H, B, part);
-    else
-      lstm_gemm<T><<<dim3(grid, kSplit), kGemmThreads, 0, st>>>(x, K, chunk(K), W, H, B, part);
-  };
-  for (int t = 0; t < d.T; ++t) {
-    const size_t o = (size_t)t * BH;
-    const bool first = t == 0, last = t + 1 == d.T;
-    const Seg3 xa{{prenet + (size_t)t * B * P, first ? fa.zeros : fa.ctx + (size_t)(t - 1) * B * E,
-                   first ? fa.zeros : fa.h_att + o - BH},
-                  {P, E, H}, {P, E, H}};
-    gemm(xa, Ka, attn_w);
-    lstm_cell<T><<<cells, 256, 0, st>>>(part, kSplit, attn_b, H, B, c_att + o,
-                                        last ? nullptr : c_att + o + BH, fa.h_att + o,
-                                        g_att + 4 * o, m1 ? m1 + o : nullptr,
-                                        m2 ? m2 + o : nullptr);
-    att_fwd<<<B, kAttThreads, smem, st>>>(fa, t);
-    const Seg3 xd{{fa.h_att + o, fa.ctx + (size_t)t * B * E, first ? fa.zeros : h_dec + o - BH},
-                  {H, E, H}, {H, E, H}};
-    gemm(xd, Kd, dec_w);
-    lstm_cell<T><<<cells, 256, 0, st>>>(part, kSplit, dec_b, H, B, c_dec + o,
-                                        last ? nullptr : c_dec + o + BH, h_dec + o,
-                                        g_dec + 4 * o, m3 ? m3 + o : nullptr,
-                                        m4 ? m4 + o : nullptr);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int Ka = P + E + H, Kd = 2 * H + E, H4 = 4 * H;
+  const int kap = cdiv(Ka, kTileK) * kTileK, kdp = cdiv(Kd, kTileK) * kTileK;
+  const size_t xa_n = (size_t)kRows * kap, xd_n = (size_t)kRows * kdp;
+  CUtensorMap mxa, mxd, mwa, mwd;
+  if (kTc) {
+    const uint64_t dxa[3] = {(uint64_t)kap, kRows, 2}, dxd[3] = {(uint64_t)kdp, kRows, 2};
+    const uint64_t dwa[2] = {(uint64_t)H4, (uint64_t)Ka}, dwd[2] = {(uint64_t)H4, (uint64_t)Kd};
+    const uint32_t bx[3] = {kTileK, kRows, 1}, bw[2] = {kTcUnits, kTileK};
+    if ((err = tensor_map(&mxa, sc.xa, 3, dxa, bx)) != cudaSuccess ||
+        (err = tensor_map(&mxd, sc.xd, 3, dxd, bx)) != cudaSuccess ||
+        (err = tensor_map(&mwa, attn_w, 2, dwa, bw)) != cudaSuccess ||
+        (err = tensor_map(&mwd, dec_w, 2, dwd, bw)) != cudaSuccess)
+      return err;
   }
-  return cudaSuccess;
+  const dim3 tc_grid(cdiv(H, kTcUnits), kTcSplit), att_grid(kNC, B);
+  const dim3 q_grid(cdiv(A, 32), cdiv(H, kQChunk));
+  const int grid = H / kUnits, cells = (B * H + 255) / 256;
+  auto chunk = [](int K) { return (K / kSplit + kBK - 1) / kBK * kBK; };
+  auto enqueue = [&](cudaStream_t s) {
+    if (kTc) {
+      cudaMemsetAsync(sc.xa, 0, 2 * xa_n * sizeof(__nv_bfloat16), s);
+      cudaMemsetAsync(sc.xd, 0, 2 * xd_n * sizeof(__nv_bfloat16), s);
+      round_rows<<<cdiv(B * P, 256), 256, 0, s>>>(prenet, B, P, sc.xa, kap);
+    }
+    for (int t = 0; t < d.T; ++t) {
+      const size_t o = (size_t)t * BH;
+      const bool first = t == 0, last = t + 1 == d.T;
+      const int par = t & 1;
+      __nv_bfloat16 *xa_now = sc.xa + par * xa_n, *xa_next = sc.xa + (1 - par) * xa_n;
+      __nv_bfloat16 *xd_now = sc.xd + par * xd_n, *xd_next = sc.xd + (1 - par) * xd_n;
+      if constexpr (kTc) {
+        const Cell ca{attn_b, c_att + o, last ? nullptr : c_att + o + BH, h_att + o,
+                      g_att + 4 * o, m1 ? m1 + o : nullptr, m2 ? m2 + o : nullptr,
+                      xd_now, kdp, xa_next + P + E, kap,
+                      last ? nullptr : prenet + (size_t)(t + 1) * B * P, xa_next, P, kap};
+        lstm_tc<<<tc_grid, kTcThreads, tc_smem, s>>>(mxa, mwa, par, Ka, H, B, ca);
+      } else {
+        const Seg3 xa{{prenet + (size_t)t * B * P,
+                       first ? fa.zeros : fa.ctx + (size_t)(t - 1) * B * E,
+                       first ? fa.zeros : h_att + o - BH},
+                      {P, E, H}, {P, E, H}};
+        lstm_gemm<T><<<dim3(grid, kSplit), kGemmThreads, 0, s>>>(xa, Ka, chunk(Ka), attn_w, H,
+                                                                  B, sc.part);
+        lstm_cell<T><<<cells, 256, 0, s>>>(sc.part, kSplit, attn_b, H, B, c_att + o,
+                                           last ? nullptr : c_att + o + BH, h_att + o,
+                                           g_att + 4 * o, m1 ? m1 + o : nullptr,
+                                           m2 ? m2 + o : nullptr);
+      }
+      att_query<<<q_grid, 256, 0, s>>>(h_att + o, B, H, fa.wq, A, sc.qpart);
+      FwdAtt at = fa;
+      at.xd = kTc ? xd_now + H : nullptr;
+      at.xa = kTc ? xa_next + P : nullptr;
+      at.ldd = kdp;
+      at.lda = kap;
+      att_fwd<<<att_grid, kAttThreads, att_smem, s>>>(at, t);
+      if constexpr (kTc) {
+        const Cell cd{dec_b, c_dec + o, last ? nullptr : c_dec + o + BH, h_dec + o,
+                      g_dec + 4 * o, m3 ? m3 + o : nullptr, m4 ? m4 + o : nullptr,
+                      xd_next + H + E, kdp, nullptr, 0, nullptr, nullptr, P, kap};
+        lstm_tc<<<tc_grid, kTcThreads, tc_smem, s>>>(mxd, mwd, par, Kd, H, B, cd);
+      } else {
+        const Seg3 xd{{h_att + o, fa.ctx + (size_t)t * B * E, first ? fa.zeros : h_dec + o - BH},
+                      {H, E, H}, {H, E, H}};
+        lstm_gemm<T><<<dim3(grid, kSplit), kGemmThreads, 0, s>>>(xd, Kd, chunk(Kd), dec_w, H,
+                                                                  B, sc.part);
+        lstm_cell<T><<<cells, 256, 0, s>>>(sc.part, kSplit, dec_b, H, B, c_dec + o,
+                                           last ? nullptr : c_dec + o + BH, h_dec + o,
+                                           g_dec + 4 * o, m3 ? m3 + o : nullptr,
+                                           m4 ? m4 + o : nullptr);
+      }
+    }
+  };
+  return launch_loop(enqueue, graph, graphs, key, st);
 }
 
 }  // namespace
@@ -365,25 +515,42 @@ cudaError_t run(const Dims& d, const void* attn_w_, const float* attn_b, const v
 // h_att (T, B, H), ctx (T, B, E), w (T, B, S) float32; g_att, g_dec
 // (T, B, 4H) stream dtype; c_att, c_dec (T, B, H) the cell state before each
 // step, zeroed by the caller.  Work: wcum (B, S) and zeros (>= B*max(H,E,S))
-// zeroed; part (kSplit, B, 4H) float32.  Returns a cudaError_t (0 on success).
+// zeroed; part (kSplit, B, 4H) float32 (float32 stream); qpart
+// (cdiv(H, kQChunk), B, A) float32; xa (2, 64, cdiv(P+E+H, 64) * 64) and xd
+// (2, 64, cdiv(2H+E, 64) * 64) bf16 (bf16 stream).  graph != 0 replays the
+// loop from a CUDA graph.  Returns a cudaError_t (0 on success).
 extern "C" int t2v_teacher_fwd(
-    int dtype, int T, int B, int S, int E, int H, int P, int A, int F, int K,
+    int dtype, int T, int B, int S, int E, int H, int P, int A, int F, int K, int graph,
     const void* attn_w, const float* attn_b, const void* dec_w, const float* dec_b,
     const float* query_w, const float* loc_w, const float* loc_dense_w, const float* v,
     const float* prenet, const float* memory, const float* pmem, const float* add_mask,
     const void* m1, const void* m2, const void* m3, const void* m4,
     float* h_dec, float* ctx, float* w, void* g_att, void* g_dec, float* c_att, float* c_dec,
-    float* h_att, float* wcum, const float* zeros, float* part, void* stream) {
+    float* h_att, float* wcum, const float* zeros, float* part, float* qpart, void* xa, void* xd,
+    void* stream) {
   if (B < 1 || B > kRows || H % kUnits != 0 || K % 2 == 0 || T < 1 || P % 4 || E % 4 ||
       (m1 == nullptr) != (m4 == nullptr))
     return (int)cudaErrorInvalidValue;
   const Dims d{T, B, S, E, H, P, A, F, K};
-  FwdArgs fa{d, query_w, loc_w, loc_dense_w, v, memory, pmem, add_mask, zeros, h_att, ctx, w, wcum};
+  const FwdAtt fa{d, query_w, qpart, loc_w, loc_dense_w, v, memory, pmem, add_mask, zeros,
+                  w, wcum, ctx, nullptr, nullptr, 0, 0};
+  const Scratch sc{part, qpart, static_cast<__nv_bfloat16*>(xa), static_cast<__nv_bfloat16*>(xd)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const std::vector<uint64_t> key =
+      make_key(dtype, T, B, S, E, H, P, A, F, K, attn_w, attn_b, dec_w, dec_b, query_w, loc_w,
+               loc_dense_w, v, prenet, memory, pmem, add_mask, m1, m2, m3, m4, h_dec, ctx, w,
+               g_att, g_dec, c_att, c_dec, h_att, wcum, zeros, part, qpart, xa, xd);
   const cudaError_t err =
-      dtype == 1 ? run<__nv_bfloat16>(d, attn_w, attn_b, dec_w, dec_b, fa, prenet, m1, m2, m3, m4,
-                                      h_dec, g_att, g_dec, c_att, c_dec, part, st)
+      dtype == 1 ? run<__nv_bfloat16>(d, attn_w, attn_b, dec_w, dec_b, fa, prenet, m1, m2, m3,
+                                      m4, h_dec, h_att, g_att, g_dec, c_att, c_dec, sc,
+                                      graph != 0, key, st)
                  : run<float>(d, attn_w, attn_b, dec_w, dec_b, fa, prenet, m1, m2, m3, m4, h_dec,
-                              g_att, g_dec, c_att, c_dec, part, st);
+                              h_att, g_att, g_dec, c_att, c_dec, sc, graph != 0, key, st);
   return (int)err;
+}
+
+// Step-loop graphs captured so far by t2v_teacher_fwd (replays add none).
+extern "C" int t2v_teacher_fwd_graph_captures() {
+  std::lock_guard<std::mutex> lock(graphs.mu);
+  return graphs.captures;
 }

@@ -12,7 +12,8 @@ turns them into weight gradients (``models/decoder_bptt.py``).
 
 On a CUDA tensor each launches its kernel set (``csrc/teacher_fwd.cu``,
 ``csrc/teacher_bwd.cu``) through one ctypes call, which loops over T
-itself; shapes the kernels do not take raise.  On a CPU tensor each runs
+itself (``USE_GRAPH``: as a CUDA graph, kept for calls with the same
+arguments; else kernel by kernel); shapes the kernels do not take raise.  On a CPU tensor each runs
 its plain twin below (``teacher_fwd_plain``, ``teacher_bwd_plain``), a port
 of ``decoder_bptt._fwd_impl`` and of the recompute path of
 ``decoder_bptt._bwd_rule``.  Launches are counted in ``.launches``.
@@ -256,7 +257,36 @@ def _masks(masks, T, B, H, sdt):
     return masks
 
 
-SPLIT = 4  # K-split of the recurrence products: kSplit in csrc/teacher_common.cuh
+SPLIT = 4       # K-split of the float32 products: kSplit in csrc/teacher_common.cuh
+CLUSTER = 4     # attention CTAs per batch row: kNC
+Q_CHUNK = 64    # rows of H per query-product partial: kQChunk
+TILE_K = 64     # reduction tile of the bf16 wgmma products: kTileK
+USE_GRAPH = True  # replay each call's step loop from a CUDA graph (False: the profiler's view)
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def fwd_scratch(T, B, S, E, H, P, A, bf16):
+    """Float32 and bf16 element counts of K3's work buffers (beside its
+    outputs): ``part`` the float32 products' K-split partials (float32
+    stream only), ``qpart`` the query-product partials, ``xa``/``xd`` the
+    bf16 LSTM operand matrices [prenet|ctx|h_att] and [h_att|ctx|h_dec],
+    two step parities of 64 rows, rows padded to the wgmma reduction tile
+    (bf16 stream only)."""
+    kap, kdp = cdiv(P + E + H, TILE_K) * TILE_K, cdiv(2 * H + E, TILE_K) * TILE_K
+    return {"part": 0 if bf16 else SPLIT * B * 4 * H, "qpart": cdiv(H, Q_CHUNK) * B * A,
+            "xa": 2 * MAX_ROWS * kap if bf16 else 0, "xd": 2 * MAX_ROWS * kdp if bf16 else 0}
+
+
+def bwd_work(B, S, E, H, P, A, Fn):
+    """Element counts of K4's zeroed float32 work, in the C argument order:
+    dx_dec, the dh_att and dctx carries, dc_att, dc_dec, the dw_prev and
+    dwcum carries, dq, the per-(row, attention CTA) dv and dWld partials,
+    and a zero row of S."""
+    return (B * (2 * H + E), B * H, B * E, B * H, B * H, B * S, B * S, B * A,
+            B * CLUSTER * A, B * CLUSTER * Fn * A, S)
 
 
 def _run_fwd(w, prenet_seq, memory, pmem, add_mask, masks):
@@ -277,14 +307,17 @@ def _run_fwd(w, prenet_seq, memory, pmem, add_mask, masks):
     c_att, c_dec = torch.zeros(T, B, H, **f32), torch.zeros(T, B, H, **f32)
     wcum = torch.zeros(B, S, **f32)
     zeros = torch.zeros(B * max(H, E, S), **f32)
-    part = torch.empty(SPLIT * B * 4 * H, **f32)
-    err = _fn("teacher_fwd", "t2v_teacher_fwd", 10, 28)(
-        int(sdt == torch.bfloat16), T, B, S, E, H, P, A, Fn, K,
+    n = fwd_scratch(T, B, S, E, H, P, A, sdt == torch.bfloat16)
+    part, qpart = torch.empty(n["part"], **f32), torch.empty(n["qpart"], **f32)
+    xa = torch.empty(n["xa"], dtype=torch.bfloat16, device=dev)
+    xd = torch.empty(n["xd"], dtype=torch.bfloat16, device=dev)
+    err = _fn("teacher_fwd", "t2v_teacher_fwd", 11, 31)(
+        int(sdt == torch.bfloat16), T, B, S, E, H, P, A, Fn, K, int(USE_GRAPH),
         *(_ptr(w[k]) for k in ("attn_w", "attn_b", "dec_w", "dec_b", "query_w", "loc_w",
                                "loc_dense_w", "v")),
         _ptr(prenet_seq), _ptr(memory), _ptr(pmem), _ptr(add_mask), *(_ptr(m) for m in masks),
         _ptr(h_dec), _ptr(ctx), _ptr(wt), _ptr(g_att), _ptr(g_dec), _ptr(c_att), _ptr(c_dec),
-        _ptr(h_att), _ptr(wcum), _ptr(zeros), _ptr(part),
+        _ptr(h_att), _ptr(wcum), _ptr(zeros), *(_ptr(x) for x in (part, qpart, xa, xd)),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(err, "t2v_teacher_fwd")
     teacher_fwd.launches += 1
@@ -314,23 +347,33 @@ def _run_bwd(w, memory, pmem, masks, dys, ys, resids, w_cum_prev):
     dloc = torch.empty(T, B, S, Fn, dtype=sdt, device=dev)
     dv, dwq, dwld = torch.empty(A, **f32), torch.zeros(H, A, **f32), torch.empty(Fn, A, **f32)
     dpmem = torch.zeros(B, S, A, **f32)
-    # zeroed work: dx_dec, dh_att carry, dctx carry, dc_att, dc_dec, dw_prev,
-    # dwcum carries, dh_att (pre-mask), dq, per-row dv and dWld partials
-    sizes = (B * (2 * H + E), B * H, B * E, B * H, B * H, B * S, B * S, B * H, B * A,
-             B * A, B * Fn * A)
+    sizes = bwd_work(B, S, E, H, P, A, Fn)
     work = torch.zeros(sum(sizes), **f32).split(sizes)
-    part = torch.empty(SPLIT * B * max(2 * H + E, P + E + H), **f32)
-    err = _fn("teacher_bwd", "t2v_teacher_bwd", 10, 44)(
-        int(sdt == torch.bfloat16), T, B, S, E, H, P, A, Fn, K,
+    bf16 = sdt == torch.bfloat16
+    part = torch.empty(0 if bf16 else SPLIT * B * max(2 * H + E, P + E + H), **f32)
+    qpart = torch.empty(fwd_scratch(T, B, S, E, H, P, A, bf16)["qpart"], **f32)
+    err = _fn("teacher_bwd", "t2v_teacher_bwd", 11, 45)(
+        int(bf16), T, B, S, E, H, P, A, Fn, K, int(USE_GRAPH),
         *(_ptr(w[k]) for k in ("attn_w", "dec_w", "query_w", "loc_w", "loc_dense_w", "v")),
         _ptr(memory), _ptr(pmem), *(_ptr(m) for m in masks),
         *(_ptr(x) for x in named.values()),
         _ptr(dg_att), _ptr(dg_dec), _ptr(dpn), _ptr(dctx), _ptr(dloc), _ptr(dv), _ptr(dwq),
-        _ptr(dwld), _ptr(dpmem), *(_ptr(x) for x in work), _ptr(part),
+        _ptr(dwld), _ptr(dpmem), *(_ptr(x) for x in work), _ptr(part), _ptr(qpart),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(err, "t2v_teacher_bwd")
     teacher_bwd.launches += 1
     return dg_att, dg_dec, dpn, dctx, dloc, dv, dwq, dwld, dpmem
+
+
+def graph_captures() -> dict:
+    """Step-loop CUDA graphs captured so far by K3 and K4 in this process
+    (a call whose arguments match one of the last four replays its graph)."""
+    out = {}
+    for key, lib in (("K3", "teacher_fwd"), ("K4", "teacher_bwd")):
+        fn = getattr(_build.load(lib), f"t2v_{lib}_graph_captures")
+        fn.restype, fn.argtypes = ctypes.c_int, []
+        out[key] = fn()
+    return out
 
 
 def teacher_fwd(w, prenet_seq, memory, pmem, add_mask, masks=None):

@@ -4,12 +4,21 @@
 
 1. K3 (``teacher_fwd``) and K4 (``teacher_bwd``) at B=64, S=128, T=512
    with recurrent dropout, in bf16 and f32: the wall time of one call (CUDA
-   events, mean of 2 after a warm-up), then one call under
-   ``torch.profiler`` with the device time of each of its kernels (total
-   and per step) and the device's busy share of the call.
-2. One full-width ``make_train_step`` step (bf16 defaults, B=64, S=128,
-   T=512) under ``torch.profiler``: the wall time and the 15 costliest
-   device kernels.
+   events, mean of 2 after a warm-up) with the step loop replayed from a
+   CUDA graph and launched kernel by kernel, then one call (launched kernel
+   by kernel) under ``torch.profiler`` with the device time of each of its
+   kernels (total and per step: lstm_tc, att_query, att_fwd; lstm_bwd,
+   dx_tc, att_query, att_bwd in bf16) and the device's busy share of the
+   call; ``gap_us_per_step`` is the graph call's wall time less the device
+   time, per step (``graph_captures``: graphs captured in those 3 calls,
+   each adding its capture and instantiation to the wall time).
+2. A yardstick the port never calls: one bf16 ``torch.mm`` (cuBLAS) of each
+   per-step LSTM product shape at B=64, (64 x 1792) . (1792 x 4096) and
+   (64 x 2560) . (2560 x 4096), and the backward's transposed ones,
+   (64 x 4096) . (4096 x 2560) and (64 x 4096) . (4096 x 1792).
+3. One full-width ``make_train_step`` step (bf16 defaults, B=64, S=128,
+   T=512) under ``torch.profiler``: the wall time, the device's busy time
+   and share of the step and the 15 costliest device kernels.
 Random weights and inputs from a fixed seed.  Prints one JSON line per
 part.  Needs a CUDA card.
 """
@@ -83,13 +92,47 @@ def profile_recurrence(dec, dtype, device, seed=0):
     for name, fn in (("K3", lambda: tf.teacher_fwd(w, prenet, memory, pmem, add, masks)),
                      ("K4", lambda: tf.teacher_bwd(w, memory, pmem, masks, dys, ys, resids,
                                                    w_cum_prev))):
-        wall_ms, prof = _timed(fn)
+        captures = tf.graph_captures()[name]
+        graph_ms, _ = _timed(fn)
+        captures = tf.graph_captures()[name] - captures
+        tf.USE_GRAPH = False
+        try:
+            wall_ms, prof = _timed(fn)
+        finally:
+            tf.USE_GRAPH = True
         kernels = _kernels(prof, T)
         busy = sum(k["total_us"] for k in kernels.values())
         rows.append({"kernel": name, "dtype": str(dtype).replace("torch.", ""), "B": B,
-                     "S": S, "T": T, "wall_ms": wall_ms, "us_per_step": wall_ms * 1e3 / T,
-                     "device_busy_share": busy / (wall_ms * 1e3), "kernels": kernels})
+                     "S": S, "T": T, "wall_ms_graph": graph_ms, "graph_captures": captures,
+                     "wall_ms_stream": wall_ms,
+                     "us_per_step": graph_ms * 1e3 / T, "device_us_per_step": busy / T,
+                     "gap_us_per_step": (graph_ms * 1e3 - busy) / T,
+                     "device_busy_share": busy / (graph_ms * 1e3), "kernels": kernels})
     return rows
+
+
+MM_SHAPES = ((64, 1792, 4096), (64, 2560, 4096), (64, 4096, 2560), (64, 4096, 1792))
+
+
+def mm_yardstick(device, reps=50):
+    """ms of one bf16 ``torch.mm`` (cuBLAS, float32 accumulation) per
+    per-step LSTM product shape (M, K, N): a yardstick only, never called
+    by the port."""
+    g = torch.Generator(device=device).manual_seed(0)
+    out = {}
+    for m, k, n in MM_SHAPES:
+        a = torch.randn(m, k, generator=g, device=device).bfloat16()
+        b = torch.randn(k, n, generator=g, device=device).bfloat16()
+        torch.mm(a, b)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            torch.mm(a, b)
+        end.record()
+        torch.cuda.synchronize()
+        out[f"{m}x{k}.{k}x{n}"] = start.elapsed_time(end) / reps
+    return out
 
 
 def profile_step(hp, device, seed=0):
@@ -115,7 +158,8 @@ def profile_step(hp, device, seed=0):
     kernels = _kernels(prof, 1)
     busy = sum(k["total_us"] for k in kernels.values())
     return {"train_step": "bf16", "B": B, "S": S, "T": T, "profiled_wall_ms": wall_ms,
-            "device_busy_ms": busy / 1e3, "top_kernels": dict(list(kernels.items())[:15])}
+            "device_busy_ms": busy / 1e3, "device_busy_share": busy / 1e3 / wall_ms,
+            "top_kernels": dict(list(kernels.items())[:15])}
 
 
 def main():
@@ -131,6 +175,7 @@ def main():
         for row in profile_recurrence(ts.model.decoder, dtype, device):
             print(json.dumps(dict(row, card=card)), flush=True)
     del ts
+    print(json.dumps({"torch_mm_ms": mm_yardstick(device), "card": card}), flush=True)
     print(json.dumps(dict(profile_step(hp, device), card=card)), flush=True)
 
 

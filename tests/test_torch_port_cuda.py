@@ -17,7 +17,9 @@ rounding now and then, and the flip feeds back); K2 atol 1e-4 as
 tests/test_pallas_stft.py:36; K3 and K4, outputs and every gradient of the
 recurrence, by ``chip_smoke.k34_check`` and its limits ``K34_TOL``, at
 widths whose LSTM input sizes (P+E+H = 176, 2H+E = 212) are not multiples
-of the 32-wide tiles, with B below the 64-row tile and at it; K5 exactly
+of the 64-deep wgmma tiles and whose 4H = 288 is not a multiple of the
+64-unit blocks, with B from 1 to the 64-row tile and S split unevenly over
+the attention cluster; two K4 calls bit for bit alike; K5 exactly
 (a copy plus one), on the 16-byte path and the scalar one, from a strided
 view; K6 atol 1e-5 (sum order), with rows off its 8-row tile.  WaveGlow
 (cuDNN/cuBLAS, no kernel of its own) on the card against the CPU: float32
@@ -86,9 +88,16 @@ ODD = TINY + ",prenet_dim=36,encoder_embedding_dim=68,symbols_embedding_dim=68,"
     "attention_rnn_dim=72,decoder_rnn_dim=72,attention_dim=24,attention_location_n_filters=6"
 
 
+# (B, S, T, memory lengths): B at 1, below the 64-row wgmma tile, one short
+# of it and at it; S split over the 4-CTA attention cluster unevenly (70 ->
+# 18+18+18+16, 13 -> 4+4+4+1) and with an empty last chunk (5 -> 2+2+1+0)
+RECURRENCE_CASES = [(5, 13, 9, (13, 12, 9, 5, 1)), (64, 70, 6, None), (1, 5, 7, None),
+                    (63, 70, 5, None)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,T,lengths", [(5, 13, 9, (13, 12, 9, 5, 1)), (64, 70, 6, None)],
-                         ids=["B5_S13", "B64_S70"])
+@pytest.mark.parametrize("B,S,T,lengths", RECURRENCE_CASES,
+                         ids=["B5_S13", "B64_S70", "B1_S5", "B63_S70"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_recurrence_kernels_match_twins_on_card(cuda_device, dtype, B, S, T, lengths):
     hp = create_hparams(ODD)
@@ -97,6 +106,29 @@ def test_recurrence_kernels_match_twins_on_card(cuda_device, dtype, B, S, T, len
     for dropout_on in (False, True):
         row = k34_check(dec, B, S, T, lengths, dtype, dropout_on, cuda_device, timed=False)
         assert not row["fails"], row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_recurrence_backward_kernel_is_deterministic_on_card(cuda_device, dtype):
+    """Two K4 calls on the same inputs give the same bits: every cross-row
+    and cross-CTA sum has one owner and a fixed order (no float atomics)."""
+    from chip_smoke import k34_inputs
+    from tacotron2_vae_torch.ops import teacher_fwd as tf
+
+    hp = create_hparams(ODD)
+    model = init_weights(Tacotron2(hp), torch.Generator().manual_seed(0))
+    dec = model.to(cuda_device).eval().requires_grad_(False).decoder
+    w, pn, mem, pm, add, masks, dys = k34_inputs(dec, 64, 70, 6, None, getattr(torch, dtype),
+                                                 True, cuda_device)
+    ys, res = tf.teacher_fwd(w, pn, mem, pm, add, masks)
+    w_cum_prev = torch.cat([torch.zeros_like(ys[2][:1]), torch.cumsum(ys[2], 0)[:-1]])
+    args = (w, mem, pm, masks, dys, ys, res, w_cum_prev.contiguous())
+    first = [x.clone() for x in tf.teacher_bwd(*args)]
+    second = tf.teacher_bwd(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
