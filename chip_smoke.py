@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # everything, as below
     python3 chip_smoke.py --k34      # build, then only the K3/K4 checks
+    python3 chip_smoke.py --k56      # build, then only K5/K6 and the probes' entry
 
 1. Environment: torch/CUDA versions, the card's name and power limit.
 2. Kernels: builds every CUDA kernel of the port from ``csrc/`` (one nvcc
@@ -17,8 +18,10 @@
    recurrence through K4 against the same gradients through the twin;
    K5 and K6 (the reshape and output-block probes) at the probes' shapes,
    on the probes' inputs and on random ones.  Times each kernel, its twin
-   and, for K2, K5 and K6, one library call (K2 and its library call in
-   turns, 5 rounds, at the serve shape and at a training clip); for K3/K4
+   and, for K2, K5 and K6, one library call, in turns (5 rounds): K2 at the
+   serve shape and at a training clip; K5 and K6 at the probes' shapes,
+   each call from a 200-call CUDA graph, beside an empty kernel launched
+   the same way (the floor of launch cost); for K3/K4
    also the device time per step of each of their kernels and, as a
    yardstick the port never calls, one bf16 ``torch.mm`` per LSTM product
    shape.
@@ -95,6 +98,9 @@ K2_TURN_SECONDS, K2_ROUNDS = (3, 4), 5
 K5_B, K5_SHAPES = 4, ((128, 128), (128, 32), (128, 256))
 K6_SHAPE = (512, 128, 32, 4)                     # BS, K, F, T
 K6_TOL = 1e-5                                    # float32 sum order over K=128
+# K5/K6 timed in turns with their library call, twin and an empty kernel:
+# K56_ROUNDS rounds, each timing one replay of K56_REPS calls in one graph
+K56_ROUNDS, K56_REPS = 5, 200
 WG_MEL_FRAMES = 600                              # the serve phase's longest mel
 WG_CPU_FRAMES, WG_CPU_TOL = 32, 1e-4             # card vs CPU, relative to max |audio|
 WG_TRAIN = (4, 16000, 3)                         # batch, segment samples, steps
@@ -117,29 +123,6 @@ def cuda_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps: int) -> float:
-    """Device time per call of ``fn`` (a few microseconds of work): ``reps``
-    calls captured in one CUDA graph and replayed, so the host's per-call
-    work, larger than the kernel here, drops out; the gaps between the
-    graph's launches stay in."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -369,12 +352,95 @@ def k2_turns(hp, key, window, fb, rng, device):
 # ------------------------------------------------ K5 / K6 (the probes)
 
 
+def graph_timer(fn, reps: int):
+    """``reps`` calls of ``fn`` captured once in a CUDA graph; returns a
+    function that replays the graph and gives the device time per call in
+    ms (the host's per-call work drops out, the gaps between the graph's
+    launches stay in)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+
+    def time_one() -> float:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    return time_one
+
+
+def in_turns(fns: dict, rounds: int, reps: int) -> dict:
+    """Each of ``fns`` ({key: fn}) captured as ``reps`` calls in one graph,
+    then timed in turns, ``rounds`` rounds of the keys in order and back
+    (for K5/K6: kernel, library, plain, floor, floor, plain, library,
+    kernel): {key: (median, min, max, [every time])} in ms per call."""
+    import numpy as np
+
+    timers = {k: graph_timer(fn, reps) for k, fn in fns.items()}
+    times = {k: [] for k in fns}
+    order = list(fns) + list(fns)[::-1]
+    for _ in range(rounds):
+        for k in order:
+            times[k].append(timers[k]())
+    return {k: (float(np.median(v)), min(v), max(v), v) for k, v in times.items()}
+
+
+def device_us(fn, calls: int) -> dict:
+    """The device kernels that ``calls`` eager calls of ``fn`` run, from
+    ``torch.profiler``: {kernel name: µs per call}, each kernel's own run
+    on the card without the launch around it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.device_time_total / calls for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def k56_timed(row, device, kernel, library, plain):
+    """K5 or K6 at its probe shape against one library call, its twin and
+    the empty kernel, in turns (K56_ROUNDS rounds, K56_REPS calls a graph);
+    ``host_bound_ms`` is the kernel timed back to back from the host, and
+    ``device_us`` the kernels' own run on the card (profiler, K56_REPS
+    eager calls) for the kernel, the library call and the empty kernel."""
+    from tacotron2_vae_torch.ops import reshape_probe as rp
+
+    def floor():
+        rp.empty_kernel(device)
+
+    t = in_turns({"ms": kernel, "library_ms": library, "plain_ms": plain, "floor_ms": floor},
+                 K56_ROUNDS, K56_REPS)
+    row["turns"] = "kernel, library, plain, floor, floor, plain, library, kernel"
+    row["rounds"] = K56_ROUNDS
+    for key, (median, lo, hi, each) in t.items():
+        row.update({key: median, f"{key}_spread": [lo, hi], f"{key}_each": each})
+    row["host_bound_ms"] = cuda_ms(kernel, K56_REPS)
+    row["device_us"] = {name: device_us(fn, K56_REPS)
+                        for name, fn in (("kernel", kernel), ("library", library),
+                                         ("floor", floor))}
+
+
 def k56_phase(device):
     """K5 and K6 against their twins at the probes' shapes, on the probes'
-    inputs and on random ones; the first shape of each timed beside its
-    twin, one library call and its bound (device time per call from graph
-    replay; ``host_bound_ms`` is the same call timed back to back from the
-    host)."""
+    inputs and on random ones; the first shape of each timed in turns with
+    its twin, one library call and the empty kernel (``k56_timed``), beside
+    its bound.  ``main`` keeps TF32 off, so the twin and the library call
+    multiply in full float32 (TF32 would blur the 1e-5 comparison)."""
     import numpy as np
     import torch
     from tacotron2_vae_torch.ops import reshape_probe as rp
@@ -394,12 +460,9 @@ def k56_phase(device):
                    "max_abs_err": float((got - want).abs().max()),
                    "fails": [] if torch.equal(got, want) else ["out"]}
             if (S, X) == K5_SHAPES[0] and inputs == "random":
-                row.update(ms=graph_ms(lambda: rp.reshape_rows_plus_one(x, S, X), 200),
-                           plain_ms=graph_ms(lambda: rp.reshape_rows_plus_one_plain(x, S, X),
-                                             200),
-                           library_ms=graph_ms(lambda: x.reshape(K5_B * S, X) + 1, 200),
-                           host_bound_ms=cuda_ms(lambda: rp.reshape_rows_plus_one(x, S, X),
-                                                 200))
+                k56_timed(row, device, lambda: rp.reshape_rows_plus_one(x, S, X),
+                          lambda: x.reshape(K5_B * S, X) + 1,
+                          lambda: rp.reshape_rows_plus_one_plain(x, S, X))
                 row["bound_ms"], row["bound_by"] = bound(2 * n * 4, n, "float32")
                 report["K5"] = row
             rows.append(row)
@@ -419,11 +482,10 @@ def k56_phase(device):
                "fails": [] if err <= K6_TOL and got.shape == (T, BS, F) else ["out"]}
         if inputs == "random":
             xt = x.expand(T, BS, K)
-            row.update(ms=graph_ms(lambda: rp.out_block_matmul(x, w, T), 200),
-                       plain_ms=graph_ms(lambda: rp.out_block_matmul_plain(x, w, T), 200),
-                       library_ms=graph_ms(lambda: torch.matmul(xt, w), 200),
-                       host_bound_ms=cuda_ms(lambda: rp.out_block_matmul(x, w, T), 200),
-                       library_max_abs_err=float((torch.matmul(xt, w) - want).abs().max()))
+            row["library_max_abs_err"] = float((torch.matmul(xt, w) - want).abs().max())
+            k56_timed(row, device, lambda: rp.out_block_matmul(x, w, T),
+                      lambda: torch.matmul(xt, w),
+                      lambda: rp.out_block_matmul_plain(x, w, T))
             # the least work: one product (stored T times), each byte moved once
             row["bound_ms"], row["bound_by"] = bound((BS * K + K * F + T * BS * F) * 4,
                                                      2.0 * BS * K * F, "float32")
@@ -1190,14 +1252,20 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} | {card}", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     t0 = time.perf_counter()
-    logs = _build.build(["decoder_loop", "stft_mel", "teacher_fwd", "teacher_bwd",
-                         "reshape_probe"], verbose=True)
+    names = (["reshape_probe"] if "--k56" in sys.argv[1:] else
+             ["decoder_loop", "stft_mel", "teacher_fwd", "teacher_bwd", "reshape_probe"])
+    logs = _build.build(names, verbose=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         for name, log in logs.items():
             f.write(f"== {name}\n{log}\n")
     print(f"built kernels in {time.perf_counter() - t0:.1f} s", flush=True)
 
     device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the default; K6's yardsticks need it
+    if "--k56" in sys.argv[1:]:  # the probe kernels' checks and timings alone
+        k56_phase(device)
+        probe_entry()
+        return 0
     hp = create_hparams()
     model = random_model(hp, device)
     if "--k34" in sys.argv[1:]:  # the recurrence kernels' checks alone

@@ -159,6 +159,13 @@ class TextMelDataset:
             self._mel_lengths = np.asarray(lens, np.int64)
         return self._mel_lengths
 
+    def max_lengths(self) -> tuple[int, int]:
+        """(longest token sequence, most mel frames) over the filelist, from
+        token counts and ``mel_lengths`` only; ``fixed_batch_shapes`` pads
+        every batch to these, rounded to the buckets."""
+        max_s = max(len(self.get_text(e[1])) for e in self.entries)
+        return max_s, int(self.mel_lengths().max())
+
     @staticmethod
     def get_onehot(index: str, n: int) -> np.ndarray:
         v = np.zeros(n, np.float32)

@@ -12,6 +12,10 @@ kernel computes the product in its own body, in FFMA.
 On a CUDA tensor each wrapper launches its kernel (or raises); on a CPU
 tensor it runs its ``*_plain`` twin.  Each counts its kernel launches in
 ``<wrapper>.launches``.  Both are float32 only, as the probes are.
+
+``empty_kernel(device)`` launches an empty kernel through the same path:
+the floor of launch cost that K5's and K6's times are read against.  The
+port itself never calls it.
 """
 
 from __future__ import annotations
@@ -102,3 +106,9 @@ def out_block_matmul(x: torch.Tensor, w: torch.Tensor, T: int) -> torch.Tensor:
 
 
 out_block_matmul.launches = 0
+
+
+def empty_kernel(device) -> None:
+    """Launch the library's empty kernel on ``device``'s current stream."""
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    _build.check(_fn("t2v_empty", [ctypes.c_void_p])(stream), "t2v_empty")

@@ -14,6 +14,7 @@ from one (the iteration count continues).  Runs on the card unless
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import time
 
@@ -28,9 +29,18 @@ from .train_state import create_train_state, make_eval_step, make_train_step, re
 
 
 def prepare_dataloaders(hp, device):
+    """Train and validation loaders.  With ``hp.fixed_batch_shapes`` every
+    train batch is padded to the train set's longest text and mel, rounded
+    up to the buckets (JAX ``training/train.py:45-57``); validation batches
+    keep their own bucketed lengths."""
     trainset = TextMelDataset(hp.training_files, hp, device=device)
     valset = TextMelDataset(hp.validation_files, hp, shuffle=False, device=device)
-    return (DataLoader(trainset, hp.batch_size, hp, shuffle=True),
+    fixed = None
+    if getattr(hp, "fixed_batch_shapes", False):
+        max_s, max_t = trainset.max_lengths()
+        fixed = (math.ceil(max_s / hp.text_bucket_size) * hp.text_bucket_size,
+                 math.ceil(max_t / hp.mel_bucket_size) * hp.mel_bucket_size)
+    return (DataLoader(trainset, hp.batch_size, hp, shuffle=True, fixed_lengths=fixed),
             DataLoader(valset, hp.batch_size, hp, shuffle=False, drop_last=False))
 
 

@@ -20,8 +20,14 @@ widths whose LSTM input sizes (P+E+H = 176, 2H+E = 212) are not multiples
 of the 64-deep wgmma tiles and whose 4H = 288 is not a multiple of the
 64-unit blocks, with B from 1 to the 64-row tile and S split unevenly over
 the attention cluster; two K4 calls bit for bit alike; K5 exactly
-(a copy plus one), on the 16-byte path and the scalar one, from a strided
-view; K6 atol 1e-5 (sum order), with rows off its 8-row tile.  WaveGlow
+(a copy plus one): one flat pass and one grid row per input row, a base
+off 16-byte alignment, row strides and row lengths that are not multiples
+of 4 (scalar heads and tails), B = 1, more blocks than one wave; K6 atol
+1e-5 (sum order) against a float64 product, with rows off its 4-row tile,
+F off its 32-column tile and not a multiple of 4, K off its 4-way split
+and beyond one 128-deep chunk (2048: past the shared-memory limit of the
+earlier design), a misaligned x, T = 1, and two calls bit for bit alike.
+WaveGlow
 (cuDNN/cuBLAS, no kernel of its own) on the card against the CPU: float32
 to 1e-5 of max |audio| (TF32 would give ~1e-3); bf16 one WaveNet to one
 bf16 ulp of its output scale (same rounding points, another sum order).
@@ -165,6 +171,61 @@ def test_out_block_kernel_matches_twin_on_card(cuda_device, BS, K, F, T):
     want = rp.out_block_matmul_plain(x, w, T)
     assert got.shape == (T, BS, F)
     np.testing.assert_allclose(n(got.cpu()), n(want.cpu()), atol=1e-5, rtol=0)
+
+
+# (B, S, X, row padding, floats the base is off a 16-byte boundary)
+RESHAPE_EDGES = {
+    "misaligned_base": (4, 128, 128, 0, 1),
+    "ld_not_multiple_of_4": (3, 16, 8, 3, 0),
+    "row_not_multiple_of_4": (3, 7, 5, 2, 0),
+    "misaligned_odd_rows": (2, 9, 12, 1, 2),
+    "B1": (1, 128, 32, 0, 0),
+    "many_waves_flat": (64, 512, 128, 0, 0),
+    "many_waves_rows": (64, 512, 128, 4, 0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", RESHAPE_EDGES)
+def test_reshape_kernel_tiling_edges_on_card(cuda_device, case):
+    B, S, X, pad, off = RESHAPE_EDGES[case]
+    rng = np.random.RandomState(2)
+    full = torch.from_numpy(rng.randn(off + B * (S * X + pad)).astype(np.float32))
+    x = full.to(cuda_device)[off:].reshape(B, S * X + pad)[:, :S * X]
+    got = rp.reshape_rows_plus_one(x, S, X)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rp.reshape_rows_plus_one_plain(x, S, X))
+
+
+# (BS, K, F, T, floats x's base is off a 16-byte boundary)
+OUT_BLOCK_EDGES = {
+    "probe_T1": (512, 128, 32, 1, 0),
+    "two_column_tiles": (512, 128, 64, 4, 0),
+    "rows_off_tile": (13, 128, 32, 4, 0),
+    "F_not_multiple_of_4": (13, 40, 37, 2, 0),
+    "K200": (64, 200, 32, 3, 0),
+    "K2048": (100, 2048, 32, 3, 0),
+    "misaligned_x": (512, 128, 32, 4, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", OUT_BLOCK_EDGES)
+def test_out_block_kernel_tiling_edges_on_card(cuda_device, case):
+    BS, K, F, T, off = OUT_BLOCK_EDGES[case]
+    rng = np.random.RandomState(3)
+    # inputs scaled so that every sum has the spread it has at K = 128
+    scale = 0.3 * (128 / K) ** 0.25
+    xf = torch.from_numpy((scale * rng.randn(off + BS * K)).astype(np.float32))
+    x = xf.to(cuda_device)[off:].view(BS, K)
+    w = torch.from_numpy((scale * rng.randn(K, F)).astype(np.float32)).to(cuda_device)
+    got = rp.out_block_matmul(x, w, T)
+    again = rp.out_block_matmul(x, w, T)
+    torch.cuda.synchronize()
+    want = (x.double() @ w.double()).expand(T, BS, F)
+    assert got.shape == (T, BS, F)
+    assert float((got.double() - want).abs().max()) <= 1e-5
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
