@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # everything, as below
     python3 chip_smoke.py --k34      # build, then only the K3/K4 checks
     python3 chip_smoke.py --k56      # build, then only K5/K6 and the probes' entry
+    python3 chip_smoke.py --k12      # build K1/K2 alone: their checks, then their timings
 
 1. Environment: torch/CUDA versions, the card's name and power limit.
 2. Kernels: builds every CUDA kernel of the port from ``csrc/`` (one nvcc
@@ -82,13 +83,14 @@ K1_EARLY_STEPS, K1_EARLY_TOL = 2, 1e-5
 K1_TOL = {"float32": {"mel": 1e-5, "gate": 1e-5, "align": 3e-4},
           "bfloat16": {"mel": 1e-2, "gate": 1e-2, "align": 0.25}}
 # (S, steps, memory lengths of rows 0..3, dropout settings): the shape the
-# kernels are tuned at, and the serve phase's text bucket and step cap
-# (S < the kernel's 64-position chunk, masked rows, 600 steps)
+# kernels are tuned at (8 positions a CTA of the 8-CTA attention cluster),
+# and the serve phase's text bucket and step cap (4 a CTA, masked rows, 600
+# steps)
 K1_CASES = ((64, 200, (64, 50, 33, 17), (False, True)),
             (32, 600, (32, 25, 17, 9), (True,)))
 K2_TOL = 1e-4                                    # tests/test_pallas_stft.py:36
-# 3 s (188 frames, a multiple of the kernel's 4-frame block) and the serve
-# phase's 2 s reference clip (126 frames: a partial last block)
+# 3 s (188 frames, one block each) and the serve phase's 2 s reference clip
+# (126 frames)
 K2_SECONDS = (3, 2)
 # K2 against its library call, timed in turns (kernel, library, library,
 # kernel) for K2_ROUNDS rounds: at the serve shape (3 s) and at a training
@@ -173,17 +175,25 @@ def k1_weight_stream_us(kw):
     return sum(t.numel() * t.element_size() for t in kw.values()) / HBM_BYTES_PER_S * 1e6
 
 
-def k2_bound(n, frames, tables):
+def k2_tables(hp, device):
+    """K2's constant tables for ``hp`` on ``device`` (``dsp.stft.Tables``)."""
+    from tacotron2_vae_torch.dsp.stft import device_tables
+
+    return device_tables(str(device), hp.filter_length, hp.win_length, hp.n_mel_channels,
+                         hp.sampling_rate, hp.mel_fmin, hp.mel_fmax)
+
+
+def k2_bound(n, frames, tab):
     """Least time for the log-mel of one wav: the bytes of the wav, the
-    tables and the output, or the operations of a real FFT per frame
+    output and the tables the kernel reads (window, twiddles, band table,
+    packed filterbank weights), or the operations of a real FFT per frame
     (2.5 N log2 N), the window, |X| (3 per bin) and the mel product over the
     filterbank's nonzeros, whichever is larger."""
-    window, costab, fb = tables
-    n_fft = window.numel()
-    n_mels, n_freq = fb.shape
-    n_bytes = (n + n_mels * frames + window.numel() + costab.numel() + fb.numel()) * 4
-    ops = frames * (2.5 * n_fft * math.log2(n_fft) + n_fft + 3 * n_freq
-                    + 2 * int((fb != 0).sum()))
+    n_mels, n_freq = tab.fb.shape
+    n_fft = tab.window.numel()
+    n_bytes = (n + n_mels * frames) * 4 + sum(
+        t.numel() * t.element_size() for t in (tab.window, tab.twiddle, tab.bands, tab.melw))
+    ops = frames * (2.5 * n_fft * math.log2(n_fft) + n_fft + 3 * n_freq + 2 * tab.melw.numel())
     return bound(n_bytes, ops, "float32")
 
 
@@ -230,7 +240,6 @@ def k1_check(dl, kw, memory, pmem, mask, dtype_name, steps, dropout_on, r):
 def kernels_phase(model, hp, device):
     import numpy as np
     import torch
-    from tacotron2_vae_torch.dsp.stft import device_tables
     from tacotron2_vae_torch.ops import decoder_loop as dl
     from tacotron2_vae_torch.ops import stft_mel as sm
     from tacotron2_vae_torch.ops.layers import linear
@@ -268,9 +277,8 @@ def kernels_phase(model, hp, device):
 
     key = (hp.filter_length, hp.hop_length, hp.win_length, hp.n_mel_channels,
            hp.sampling_rate, hp.mel_fmin, hp.mel_fmax)
-    window, costab, _, _, fb = device_tables(str(device), hp.filter_length, hp.win_length,
-                                             hp.n_mel_channels, hp.sampling_rate,
-                                             hp.mel_fmin, hp.mel_fmax)
+    tab = k2_tables(hp, device)
+    window, fb = tab.window, tab.fb
     k2_err, k2_main = 0.0, None
     for seconds in K2_SECONDS:
         n = seconds * hp.sampling_rate
@@ -287,15 +295,10 @@ def kernels_phase(model, hp, device):
               "fails": [] if err <= K2_TOL and got.shape == (1, hp.n_mel_channels, frames)
               else ["mel"]}
         if seconds == K2_SECONDS[0]:
-            def library():
-                spec = torch.stft(wav, hp.filter_length, hp.hop_length, hp.win_length,
-                                  window, center=True, pad_mode="reflect",
-                                  return_complex=True)
-                return torch.log(torch.clamp(fb @ spec.abs(), min=1e-5))
-
+            library = k2_library(hp, wav, window, fb)
             k2.update(library_max_abs_err=float((library()[None] - want).abs().max()),
                       plain_ms=cuda_ms(lambda: sm.mel_spectrogram_plain(wav, *key), 20))
-            k2["bound_ms"], k2["bound_by"] = k2_bound(n, frames, (window, costab, fb))
+            k2["bound_ms"], k2["bound_by"] = k2_bound(n, frames, tab)
             k2_main = k2
         print(json.dumps(k2), flush=True)
         rows.append(k2)
@@ -311,30 +314,45 @@ def kernels_phase(model, hp, device):
     return report, rows
 
 
+def k2_library(hp, wav, window, fb):
+    """K2's library call on ``wav``: ``torch.stft`` + the mel product + log."""
+    import torch
+
+    def library():
+        spec = torch.stft(wav, hp.filter_length, hp.hop_length, hp.win_length, window,
+                          center=True, pad_mode="reflect", return_complex=True)
+        return torch.log(torch.clamp(fb @ spec.abs(), min=1e-5))
+
+    return library
+
+
+def k2_turn_wav(hp, seconds, rng, device):
+    """The synthetic wav K2 is timed on: a 220 Hz tone and a little noise."""
+    import numpy as np
+    import torch
+
+    n = seconds * hp.sampling_rate
+    t = np.arange(n) / hp.sampling_rate
+    return torch.from_numpy((0.4 * np.sin(2 * np.pi * 220 * t)
+                             + 0.01 * rng.randn(n)).astype(np.float32)).to(device)
+
+
 def k2_turns(hp, key, window, fb, rng, device):
     """K2 and its library call (``torch.stft`` + the mel product + log) timed
     in turns, kernel, library, library, kernel, for K2_ROUNDS rounds (20
     calls each, CUDA events) on one synthetic wav per K2_TURN_SECONDS: the
     median and the spread (min, max) of each."""
     import numpy as np
-    import torch
     from tacotron2_vae_torch.ops import stft_mel as sm
 
     rows = []
     for seconds in K2_TURN_SECONDS:
-        n = seconds * hp.sampling_rate
-        t = np.arange(n) / hp.sampling_rate
-        wav = torch.from_numpy((0.4 * np.sin(2 * np.pi * 220 * t)
-                                + 0.01 * rng.randn(n)).astype(np.float32)).to(device)
+        wav = k2_turn_wav(hp, seconds, rng, device)
 
         def kernel():
             return sm.mel_spectrogram_fused(wav, *key)
 
-        def library():
-            spec = torch.stft(wav, hp.filter_length, hp.hop_length, hp.win_length, window,
-                              center=True, pad_mode="reflect", return_complex=True)
-            return torch.log(torch.clamp(fb @ spec.abs(), min=1e-5))
-
+        library = k2_library(hp, wav, window, fb)
         k, lib = [], []
         for _ in range(K2_ROUNDS):
             k.append(cuda_ms(kernel, 20))
@@ -707,8 +725,6 @@ def kernel_breakdown(fn, steps):
     """Device microseconds per step of each kernel of one call of ``fn``
     (a K3 or K4 call launched kernel by kernel, not from its CUDA graph),
     by ``torch.profiler``; "device" is their sum."""
-    import re
-
     import torch
     from tacotron2_vae_torch.ops import teacher_fwd as tf
 
@@ -726,11 +742,19 @@ def kernel_breakdown(fn, steps):
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        name = re.sub(r"^void |\(anonymous namespace\)::", "", evt.key)
-        name = re.split(r"[(<]", name)[0].split("::")[-1] or evt.key[:40]
+        name = short_name(evt.key)
         out[name] = out.get(name, 0.0) + evt.device_time_total / steps
     out["device"] = sum(out.values())
     return out
+
+
+def short_name(key):
+    """A kernel's name from a profiler key: no namespace, template or
+    arguments."""
+    import re
+
+    name = re.sub(r"^void |\(anonymous namespace\)::", "", key)
+    return re.split(r"[(<]", name)[0].split("::")[-1] or key[:40]
 
 
 def k34_phase(model, device):
@@ -754,6 +778,63 @@ def k34_phase(model, device):
     if failed:
         raise AssertionError(f"{len(failed)} K3/K4 check(s) disagree with the twins: "
                              f"{[(r['dtype'], r['B'], r['dropout'], r['fails']) for r in failed]}")
+    return report, rows
+
+
+# ------------------------------------------------ K1 / K2 (--k12)
+
+# (S, steps) of K1's per-kernel reads: the shape the kernels are tuned at and
+# the serve phase's text bucket and step cap
+K12_DECODE = ((64, 200), (32, 600))
+K12_PROFILED_CALLS = 20  # eager K2 calls (and library calls) under the profiler
+
+
+def k12_phase(model, hp, device):
+    """K1 and K2 alone: their checks at full width and K2 in turns with its
+    library call (``kernels_phase``); the profiler's device µs per call of
+    K2 and of its library call at each K2_TURN_SECONDS; K1's device µs per
+    step of each of its kernels (``profile_decode.profile``, graph replays
+    under the profiler) at B=1 and B=4, bf16 and f32, at each K12_DECODE
+    shape; and the host-clock split of one ``infer`` at the serve shape
+    (``profile_decode.profile_infer``).  Writes every row to
+    ``chiprun_out/chip_smoke_k12.json``."""
+    import numpy as np
+    import torch
+    from tacotron2_vae_torch import profile_decode as pd
+    from tacotron2_vae_torch.ops import stft_mel as sm
+
+    report, rows = kernels_phase(model, hp, device)
+    tab = k2_tables(hp, device)
+    key = (hp.filter_length, hp.hop_length, hp.win_length, hp.n_mel_channels,
+           hp.sampling_rate, hp.mel_fmin, hp.mel_fmax)
+    rng = np.random.RandomState(SEED)
+    for seconds in K2_TURN_SECONDS:
+        wav = k2_turn_wav(hp, seconds, rng, device)
+        fns = {"kernel": lambda: sm.mel_spectrogram_fused(wav, *key),
+               "library": k2_library(hp, wav, tab.window, tab.fb)}
+        row = {"kernel": "K2", "seconds": seconds, "calls": K12_PROFILED_CALLS,
+               "device_us": {k: device_us(fn, K12_PROFILED_CALLS) for k, fn in fns.items()}}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    for S, steps in K12_DECODE:
+        for dtype in (torch.bfloat16, torch.float32):
+            for B in (1, 4):
+                prof = pd.profile(model.decoder, B, S, steps, dtype, device)
+                by_kernel = {}
+                for name, k in prof["kernels"].items():
+                    name = short_name(name)
+                    by_kernel[name] = by_kernel.get(name, 0.0) + k["total_us"] / steps
+                row = {"kernel": "K1", **{k: prof[k] for k in (
+                    "B", "S", "steps", "dtype", "us_per_step", "kernel_us_per_step",
+                    "device_busy_share")}, "us_per_step_by_kernel": by_kernel}
+                print(json.dumps(row), flush=True)
+                rows.append(row)
+    for B in (1, 4):
+        row = pd.profile_infer(model, B)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    with open(os.path.join(OUT_DIR, "chip_smoke_k12.json"), "w") as f:
+        json.dump(rows, f, indent=1)
     return report, rows
 
 
@@ -1253,6 +1334,7 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     t0 = time.perf_counter()
     names = (["reshape_probe"] if "--k56" in sys.argv[1:] else
+             ["decoder_loop", "stft_mel"] if "--k12" in sys.argv[1:] else
              ["decoder_loop", "stft_mel", "teacher_fwd", "teacher_bwd", "reshape_probe"])
     logs = _build.build(names, verbose=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
@@ -1270,6 +1352,9 @@ def main() -> int:
     model = random_model(hp, device)
     if "--k34" in sys.argv[1:]:  # the recurrence kernels' checks alone
         k34_phase(model, device)
+        return 0
+    if "--k12" in sys.argv[1:]:  # the decode-loop and log-mel kernels alone, then timed
+        k12_phase(model, hp, device)
         return 0
     report, rows = kernels_phase(model, hp, device)
     k56, k56_rows = k56_phase(device)

@@ -22,9 +22,9 @@
 //   lstm  attention LSTM: two warps per hidden unit compute its 4 gate rows
 //         for every batch row (GEMV over weights packed [4*j+g][k]), then
 //         the fp32 cell update
-//   att   one block per row: query, the 31-tap location conv over
-//         [w_prev, w_cum], loc_dense, tanh(q+loc+pmem).v, additive mask,
-//         softmax over S, context = w.memory, w_cum += w
+//   att   one cluster of kNC CTAs per row (below): query, the 31-tap
+//         location conv over [w_prev, w_cum], loc_dense, tanh(q+loc+pmem).v,
+//         additive mask, softmax over S, context = w.memory, w_cum += w
 //   lstm  decoder LSTM (same kernel)
 //   proj  one warp per output column: fused mel+gate projection
 //   fin   one block: writes the step's outputs for rows not yet finished,
@@ -38,6 +38,39 @@
 // launch; the price is 6 launches per step, which the graph replays with
 // less launch overhead than one stream launch each.
 //
+// The attention step.  One block per row ran it as a chain on one SM: the
+// whole query product (Wq, 128 x 1024, 256 KB in bf16, read by every row's
+// block), then the location conv, loc_dense and energies for all S
+// positions, the softmax and the context over all of E, eight barriers
+// apart: ~25 us of a 59-75 us step, against ~0.1 us for its bytes (Wq, the
+// row's memory and processed memory, ~0.34 MB at B=1, S=64, bf16) and its
+// ~1.1 MFLOP.  Like every K1 kernel it is bound by latency, not by the
+// card's rates: its time is the length of its chain of dependent phases,
+// each a round trip to memory or a barrier.  Now a row runs on a cluster of
+// kNC = 8 CTAs on neighbouring SMs, so each compute link of the chain is
+// kNC times shorter, and the chain has fewer round trips:
+//   - all of a CTA's independent loads are issued together at its start
+//     (cp.async copies of h_att, loc_w, loc_dense_w, its processed memory,
+//     its w_prev / w_cum window, mask and w_cum; its first memory vectors
+//     for the context into registers);
+//   - each CTA computes A / kNC rows of the query (Wq read once a row, not
+//     once a block; every weight load of a warp in flight before its first
+//     FMA) and the CTAs exchange them through distributed shared memory (no
+//     separate query launch, which would cost another ~1 us graph node);
+//   - each CTA owns a contiguous range of ceil(S / kNC) positions, with the
+//     conv's halo, and computes the location features, loc_dense and
+//     energies of that range only;
+//   - the softmax takes one exchange through distributed shared memory:
+//     each CTA's max m and sum of exp(e - m), the sums rescaled to the
+//     row's max and added in rank order (no float atomics, so a run is
+//     deterministic);
+//   - the context is split over E: each CTA reads every weight from its
+//     owner's exponentials and sums its E / kNC columns over all of S.
+// Two cluster barriers and one split arrive/wait (so that no CTA exits
+// while another still reads its shared memory) replace the block-wide
+// chain.  kNC = 8 measured 0.4-2.5 us a step faster than 4 at S = 32 and
+// 64, B = 1 and 4 (chip_smoke.py --k12 in turns; PERF.md).
+//
 // Numerics follow the TPU kernel's casting points: every activation is
 // rounded to the weight dtype right before its product (prenet input and
 // hidden, the LSTM inputs, h_att for the query, the location features
@@ -49,15 +82,19 @@
 // (seed, step, layer, row, unit); ops/decoder_loop.py computes the same
 // hash, so the plain twin reproduces the kernel's masks bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kWarps = 8;          // warps per block in the GEMV kernels
 constexpr int kThreads = 256;      // threads per block elsewhere
-constexpr int kChunk = 64;         // attention positions per energy chunk
+constexpr int kNC = 8;             // attention: CTAs per row (one cluster), S split kNC ways
+constexpr int kCtxPre = 4;         // attention: context memory vectors a thread loads early
 constexpr int kPreRows = 64;       // prenet layer-2 outputs per block
 constexpr int kMaxF = 32;          // location filters held in registers
 constexpr int kSplitK = 2;         // warps sharing one LSTM unit's dot products
@@ -104,19 +141,22 @@ __device__ __forceinline__ bool keep_bit(uint32_t seed, uint32_t step, uint32_t 
   return h < 0x80000000u;
 }
 
-// Unpack one 16-byte vector of weights into floats.
+// Unpack one 16-byte vector of weights into floats (`load` from memory,
+// `unpack` from a register copy).
 template <typename T> struct Vec;
 template <> struct Vec<float> {
   static constexpr int N = 4;
+  __device__ __forceinline__ static void unpack(uint4 v, float* out) {
+    out[0] = __uint_as_float(v.x); out[1] = __uint_as_float(v.y);
+    out[2] = __uint_as_float(v.z); out[3] = __uint_as_float(v.w);
+  }
   __device__ __forceinline__ static void load(const float* p, float* out) {
-    float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+    unpack(*reinterpret_cast<const uint4*>(p), out);
   }
 };
 template <> struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
-    uint4 v = *reinterpret_cast<const uint4*>(p);
+  __device__ __forceinline__ static void unpack(uint4 v, float* out) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -124,6 +164,9 @@ template <> struct Vec<__nv_bfloat16> {
       out[2 * i] = f.x;
       out[2 * i + 1] = f.y;
     }
+  }
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
+    unpack(*reinterpret_cast<const uint4*>(p), out);
   }
 };
 
@@ -133,62 +176,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Block-wide reduction (max or sum) for kThreads threads; `red` holds >= 32 floats.
-template <bool kMax>
-__device__ float block_reduce(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    float u = __shfl_xor_sync(0xffffffffu, v, o);
-    v = kMax ? fmaxf(v, u) : v + u;
-  }
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (int)(blockDim.x >> 5) ? red[lane] : (kMax ? -3.402823466e38f : 0.0f);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      float u = __shfl_xor_sync(0xffffffffu, v, o);
-      v = kMax ? fmaxf(v, u) : v + u;
-    }
-    if (lane == 0) red[0] = v;
-  }
-  __syncthreads();
-  v = red[0];
-  __syncthreads();
-  return v;
-}
-
-// Block-wide copies into shared memory.  Each thread keeps 4 16-byte loads
-// in flight before it stores, so a copy costs about one load round trip
-// instead of one per loop iteration.
-
-// dst[i] = rnd<RoundT>(src[i]) for i < n; n a multiple of Vec<Src>::N, src
-// 16-byte aligned.
-template <typename Src, typename RoundT>
-__device__ __forceinline__ void stage(const Src* __restrict__ src, int n, float* dst) {
-  constexpr int V = Vec<Src>::N;
-  const int nv = n / V;
-  for (int i0 = threadIdx.x; i0 < nv; i0 += 4 * blockDim.x) {
-    float v[4][V];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = i0 + u * blockDim.x;
-      if (i < nv) Vec<Src>::load(src + (size_t)i * V, v[u]);
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int i = i0 + u * blockDim.x;
-      if (i < nv)
-#pragma unroll
-        for (int e = 0; e < V; ++e) dst[i * V + e] = rnd<RoundT>(v[u][e]);
-    }
-  }
-}
-
 // Stage x (B rows of K floats, row stride ldx, both multiples of 4) into
-// shared memory as xs[b * K + k], rounded to T, then synchronise.
+// shared memory as xs[b * K + k], rounded to T, then synchronise.  Each
+// thread keeps 4 16-byte loads in flight before it stores, so a copy costs
+// about one load round trip instead of one per loop iteration.
 template <typename T, int B>
 __device__ __forceinline__ void stage_rows(const float* x, int ldx, int K, float* xs) {
   const int K4 = K / 4, n = B * K4;
@@ -376,197 +367,381 @@ __global__ void proj_kernel(const T* __restrict__ w, const float* __restrict__ b
     if (lane == b) out[(size_t)b * N + n] = acc[0][b] + bias[n];
 }
 
-// Floats of the attention kernel's shared region that holds a chunk of
-// processed memory, then the per-warp context partials.
-__host__ __device__ inline int att_big(int A, int E) {
-  return kChunk * A > (kThreads / 32) * E ? kChunk * A : (kThreads / 32) * E;
-}
-
 struct AttDims {
   int S, E, Ha, Hd, P, A, F, KL;
   int lda, ldd, ldp;
 };
 
-// Location-sensitive attention for one row per block (kThreads threads).
+__host__ __device__ inline int up4(int x) { return (x + 3) / 4 * 4; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// dst[0, bytes) = src[0, bytes) by 16-byte cp.async copies that do not wait
+// for their data (both 16-byte aligned, bytes a multiple of 16); complete
+// with cp_async_wait() and a barrier.
+__device__ __forceinline__ void copy_async(void* dst, const void* src, int bytes) {
+  for (int i = threadIdx.x; i < bytes / 16; i += blockDim.x)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(
+                     static_cast<char*>(dst) + 16 * i)),
+                 "l"(static_cast<const char*>(src) + 16 * i)
+                 : "memory");
+}
+// dst[0] = *src (4 bytes), or 0 when !in (src is then not read).
+__device__ __forceinline__ void copy_async4(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// acc[r] = w[row0 + r] . rnd<T>(x) for R rows, one warp, x in shared memory
+// as float; each lane sums its k in the order warp_gemv does, but issues the
+// loads of NK weight vectors per row before its first FMA, so K <= 32 V NK
+// costs one round trip to memory, not K / 32 V of them.
+template <typename T, int R, int NK>
+__device__ __forceinline__ void query_rows(const T* __restrict__ w, size_t row0, int K,
+                                           const float* xs, float (&acc)[R]) {
+  constexpr int V = Vec<T>::N;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+  for (int kb = 0; kb < K; kb += 32 * V * NK) {
+    uint4 raw[NK][R];
+#pragma unroll
+    for (int c = 0; c < NK; ++c) {
+      const int k0 = kb + (c * 32 + lane) * V;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (k0 < K) raw[c][r] = *reinterpret_cast<const uint4*>(w + (row0 + r) * (size_t)K + k0);
+    }
+#pragma unroll
+    for (int c = 0; c < NK; ++c) {
+      const int k0 = kb + (c * 32 + lane) * V;
+      if (k0 >= K) break;
+      float xv[V];
+#pragma unroll
+      for (int q4 = 0; q4 < V / 4; ++q4) {
+        const float4 x4 = reinterpret_cast<const float4*>(xs + k0)[q4];
+        xv[4 * q4] = rnd<T>(x4.x);
+        xv[4 * q4 + 1] = rnd<T>(x4.y);
+        xv[4 * q4 + 2] = rnd<T>(x4.z);
+        xv[4 * q4 + 3] = rnd<T>(x4.w);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float wv[V];
+        Vec<T>::unpack(raw[c][r], wv);
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[r] = fmaf(wv[e], xv[e], acc[r]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = warp_sum(acc[r]);
+}
+
+// One attention CTA's share of a row, cluster rank `rank`: positions
+// [s0, s0 + n) of S in chunks of Sc = ceil(S / kNC) (the last ones shorter
+// or empty; Sc4 rounded up to 4); context columns [k0, k0 + ncol) of E in
+// chunks of Ec (a multiple of the V-wide weight vector; the last ones
+// shorter or empty); query rows [rank A / kNC, (rank + 1) A / kNC).  Lc is
+// the length of the staged w_prev / w_cum window, rounded up to 4: the
+// positions, the conv's halo of (KL - 1) / 2 on each side, and the sliding
+// window's last read.
+struct AttGeo {
+  int Sc, Sc4, s0, n, Lc, Ec, k0, ncol;
+  __host__ __device__ AttGeo(const AttDims& d, int V, int rank) {
+    Sc = (d.S + kNC - 1) / kNC;
+    Sc4 = up4(Sc);
+    s0 = rank * Sc;
+    n = d.S - s0 < Sc ? d.S - s0 : Sc;
+    if (n < 0) n = 0;
+    Lc = up4(Sc + d.KL + 1);
+    Ec = (d.E + kNC * V - 1) / (kNC * V) * V;
+    k0 = rank * Ec;
+    ncol = d.E - k0 < Ec ? d.E - k0 : Ec;
+    if (ncol < 0) ncol = 0;
+  }
+  // floats of shared memory, in the order the kernel lays them out (every
+  // region a multiple of 4 floats, so each starts 16-byte aligned); tb is
+  // sizeof(T), the arrays copied from memory as they are stored (pmem,
+  // loc_w, loc_dense_w) take ... * tb / 4 floats
+  __host__ __device__ static int floats(const AttDims& d, int V, int tb) {
+    const AttGeo g(d, V, 0);
+    const int cpart = kThreads * V > g.Ec ? kThreads * V : g.Ec;
+    return g.Sc4 * d.F + g.Sc4 * d.A * tb / 4 + cpart + d.Ha + d.A + 2 * g.Lc + 3 * g.Sc4 +
+           up4(d.S) + d.KL * 2 * d.F * tb / 4 + d.F * d.A * tb / 4 + g.Sc4 * (d.A / 32) + 4;
+  }
+};
+
+// Location-sensitive attention of row blockIdx.y on a cluster of kNC CTAs
+// (kThreads threads each).  Every CTA computes its A / kNC rows of the
+// query and the CTAs exchange them through distributed shared memory; each
+// then takes its own positions: location conv, loc_dense, tanh(.).v and the
+// mask.  Each CTA's max and sum of exp(e - max) meet through distributed
+// shared memory in one exchange (the sums rescaled to the row's max and
+// added in rank order); every CTA reads all S exponentials from their
+// owners, so it holds every weight for its E / kNC columns of the context.
 // Thread mapping for the energies: a = tid % A (one attention unit, its
 // loc_dense column held in registers), groups of A threads take positions
-// s in turn; a warp sums its 32 units' v.tanh(.) terms by shuffles.
+// in turn; a warp sums its 32 units' v.tanh(.) terms by shuffles.
 template <typename T>
-__global__ void att_kernel(AttDims d, const T* __restrict__ wq, const T* __restrict__ locw,
-                           const T* __restrict__ ldw, const T* __restrict__ v,
-                           const T* __restrict__ pmem, const T* __restrict__ mem,
-                           const float* __restrict__ addmask, float* __restrict__ wprev,
-                           float* __restrict__ wcum, float* __restrict__ xa,
-                           float* __restrict__ xd, float* __restrict__ xp,
-                           const int* __restrict__ flags, int max_steps) {
-  if (step_of(flags, max_steps) < 0) return;
-  extern __shared__ float sm[];
+__global__ void __cluster_dims__(kNC, 1, 1) __launch_bounds__(kThreads, 1)
+att_kernel(AttDims d, const T* __restrict__ wq, const T* __restrict__ locw,
+           const T* __restrict__ ldw, const T* __restrict__ v, const T* __restrict__ pmem,
+           const T* __restrict__ mem, const float* __restrict__ addmask,
+           float* __restrict__ wprev, float* __restrict__ wcum, float* __restrict__ xa,
+           float* __restrict__ xd, float* __restrict__ xp, const int* __restrict__ flags,
+           int max_steps) {
+  if (step_of(flags, max_steps) < 0) return;  // every CTA of the cluster alike
+  extern __shared__ __align__(16) float sm[];
+  constexpr int V = Vec<T>::N, TB = (int)sizeof(T);
+  cg::cluster_group cl = cg::this_cluster();
   const int S = d.S, A = d.A, F = d.F, KL = d.KL, Ha = d.Ha, E = d.E;
-  const int Lp = S + KL + 3, pad = (KL - 1) / 2;  // padded length of w_prev/w_cum
-  const int WG = A / 32, G = blockDim.x / A;      // warps per group, groups
-  // 16-byte aligned arrays first (F, A, Ha, E are multiples of 4)
-  float* locf = sm;                               // kChunk * F
-  float* big = locf + kChunk * F;                 // max(kChunk * A, nwarps * E)
-  float* hs = big + att_big(A, E);                // Ha
-  float* q = hs + Ha;                             // A
-  float* wpad = q + A;                            // 2 * Lp (w_prev; w_cum)
-  float* e = wpad + 2 * Lp;                       // S
-  float* lw = e + S;                              // KL * 2 * F
-  float* epart = lw + KL * 2 * F;                 // kChunk * WG
-  float* red = epart + kChunk * WG;               // 32
-  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = (int)cl.block_rank(), b = blockIdx.y;
+  const AttGeo geo(d, V, rank);
+  const int pad = (KL - 1) / 2, Lc = geo.Lc, Aq = A / kNC, n = geo.n;
+  const int WG = A / 32, G = blockDim.x / A;  // warps per group, groups
+  float* locf = sm;                                         // Sc4 * F
+  T* pms = reinterpret_cast<T*>(locf + geo.Sc4 * F);        // Sc4 * A of T
+  float* cpart = locf + geo.Sc4 * F + geo.Sc4 * A * TB / 4; // max(kThreads * V, Ec)
+  float* hs = cpart + (kThreads * V > geo.Ec ? kThreads * V : geo.Ec);  // Ha
+  float* q = hs + Ha;                                       // A
+  float* wpad = q + A;                                      // 2 * Lc (w_prev; w_cum)
+  float* e = wpad + 2 * Lc;                                 // Sc4
+  float* madd = e + geo.Sc4;                                // Sc4: this CTA's additive mask
+  float* wc = madd + geo.Sc4;                               // Sc4: this CTA's w_cum
+  float* wall = wc + geo.Sc4;                               // up4(S): every weight of the row
+  T* lw = reinterpret_cast<T*>(wall + up4(S));              // KL * 2 * F of T
+  T* ldws = lw + KL * 2 * F;                                // F * A of T
+  float* epart = reinterpret_cast<float*>(ldws + F * A);    // Sc4 * WG
+  float* slot = epart + geo.Sc4 * WG;                       // 4: this CTA's max and sum
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float* hq = xd + (size_t)b * d.ldd;  // h_att of this step
 
-  stage<float, T>(hq, Ha, hs);
-  for (int i = tid; i < Lp; i += blockDim.x) {
-    const int s = i - pad;
-    const bool in = s >= 0 && s < S;
-    wpad[i] = in ? rnd<T>(wprev[(size_t)b * S + s]) : 0.0f;
-    wpad[Lp + i] = in ? rnd<T>(wcum[(size_t)b * S + s]) : 0.0f;
+  // Every load that waits on no other is in flight at once: the memory
+  // vectors of this thread's first kCtxPre context positions into registers
+  // (used after the softmax); h_att, loc_w, loc_dense_w, this CTA's
+  // processed memory, its w_prev / w_cum window and its own mask and w_cum
+  // as asynchronous copies (rounded or widened where they are read,
+  // the window rounded in place by the thread that copied it).
+  const int cgs = geo.ncol / V, ns = cgs > 0 ? max(1, (int)blockDim.x / cgs) : 1;
+  const int cgi = tid % max(cgs, 1), ps = tid / max(cgs, 1);  // context column group, positions
+  const bool ctx_thread = cgs > 0 && ps < ns;
+  uint4 mpre[kCtxPre];
+#pragma unroll
+  for (int u = 0; u < kCtxPre; ++u) {
+    const int s = ps + u * ns;
+    if (ctx_thread && s < S)
+      mpre[u] = *reinterpret_cast<const uint4*>(mem + ((size_t)b * S + s) * E + geo.k0 + cgi * V);
   }
-  stage<T, float>(locw, KL * 2 * F, lw);
+  copy_async(hs, hq, Ha * 4);
+  copy_async(lw, locw, KL * 2 * F * TB);
+  copy_async(ldws, ldw, F * A * TB);
+  copy_async(pms, pmem + ((size_t)b * S + geo.s0) * A, n * A * TB);
+  for (int i = tid; i < Lc; i += blockDim.x) {
+    const int s = geo.s0 - pad + i;
+    const bool in = s >= 0 && s < S;
+    copy_async4(wpad + i, wprev + (size_t)b * S + (in ? s : 0), in);
+    copy_async4(wpad + Lc + i, wcum + (size_t)b * S + (in ? s : 0), in);
+  }
+  for (int p = tid; p < n; p += blockDim.x) {
+    copy_async4(madd + p, addmask + (size_t)b * S + geo.s0 + p, true);
+    copy_async4(wc + p, wcum + (size_t)b * S + geo.s0 + p, true);
+  }
+  cp_async_wait();
+  for (int i = tid; i < Lc; i += blockDim.x) {
+    wpad[i] = rnd<T>(wpad[i]);
+    wpad[Lc + i] = rnd<T>(wpad[Lc + i]);
+  }
   __syncthreads();
 
-  // query q = h_att . Wq^T, Wq (A, Ha): 16 rows per warp call
-  for (int n0 = warp * 16; n0 < A; n0 += (blockDim.x >> 5) * 16) {
-    float acc[16][1];
-    warp_gemv<T, 1, 16>(wq, (size_t)n0, Ha, hs, acc);
+  // this CTA's rows of the query q = h_att . Wq^T, Wq (A, Ha): 4 rows a warp call
+  for (int n0 = rank * Aq + warp * 4; n0 < (rank + 1) * Aq; n0 += (blockDim.x >> 5) * 4) {
+    float acc[4];
+    query_rows<T, 4, 4>(wq, (size_t)n0, Ha, hs, acc);
     if (lane == 0)
 #pragma unroll
-      for (int r = 0; r < 16; ++r) q[n0 + r] = acc[r][0];
+      for (int r = 0; r < 4; ++r) q[n0 + r] = acc[r];
   }
   const int a = tid % A, g = tid / A, wg = (tid % A) >> 5;
   float wl[kMaxF];
 #pragma unroll
-  for (int f = 0; f < kMaxF; ++f) wl[f] = f < F ? to_f(ldw[(size_t)f * A + a]) : 0.0f;
+  for (int f = 0; f < kMaxF; ++f) wl[f] = f < F ? to_f(ldws[f * A + a]) : 0.0f;
   const float va = to_f(v[a]);
-  float* pms = big;  // this chunk's processed memory, (kChunk, A)
+  // every CTA's query rows are written, and every CTA has staged its w_prev /
+  // w_cum window, so the updates after the softmax cannot race a read of it
+  cl.sync();
+  for (int i = tid; i < A; i += blockDim.x)
+    if (i / Aq != rank) q[i] = *cl.map_shared_rank(q + i, i / Aq);
 
-  for (int s0 = 0; s0 < S; s0 += kChunk) {
-    const int n_s = min(kChunk, S - s0);
-    __syncthreads();
-    stage<T, float>(pmem + ((size_t)b * S + s0) * A, n_s * A, pms);
-    // location features, 4 consecutive positions per thread with a sliding
-    // window over the taps, rounded to T (the TPU kernel's acc.astype)
-    for (int i = tid; i < (kChunk / 4) * F; i += blockDim.x) {
-      const int sg = i / F, f = i - sg * F, sl0 = sg * 4, s = s0 + sl0;
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (s < S) {
-        float c0[4], c1[4];
+  // location features of this CTA's positions, 2 consecutive positions per
+  // thread with a sliding window over the taps, rounded to T (the TPU
+  // kernel's acc.astype)
+  for (int i = tid; i < (geo.Sc4 / 2) * F; i += blockDim.x) {
+    const int sg = i / F, f = i - sg * F, p = sg * 2;  // p: local position
+    float acc[2] = {0.0f, 0.0f};
+    if (p < n) {
+      float w0[2] = {wpad[p], wpad[p + 1]}, w1[2] = {wpad[Lc + p], wpad[Lc + p + 1]};
+#pragma unroll 4
+      for (int dk = 0; dk < KL; ++dk) {
+        const float l0 = to_f(lw[(dk * 2) * F + f]), l1 = to_f(lw[(dk * 2 + 1) * F + f]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          c0[j] = wpad[s + j];
-          c1[j] = wpad[Lp + s + j];
+        for (int j = 0; j < 2; ++j) {
+          acc[j] = fmaf(w0[j], l0, acc[j]);
+          acc[j] = fmaf(w1[j], l1, acc[j]);
         }
-        for (int dk = 0; dk < KL; ++dk) {
-          const float l0 = lw[(dk * 2) * F + f], l1 = lw[(dk * 2 + 1) * F + f];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            acc[j] = fmaf(c0[j], l0, acc[j]);
-            acc[j] = fmaf(c1[j], l1, acc[j]);
-          }
-#pragma unroll
-          for (int j = 0; j < 3; ++j) {
-            c0[j] = c0[j + 1];
-            c1[j] = c1[j + 1];
-          }
-          c0[3] = wpad[s + dk + 4];
-          c1[3] = wpad[Lp + s + dk + 4];
-        }
+        w0[0] = w0[1];
+        w1[0] = w1[1];
+        w0[1] = wpad[p + dk + 2];
+        w1[1] = wpad[Lc + p + dk + 2];
       }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) locf[(sl0 + j) * F + f] = rnd<T>(acc[j]);
     }
-    __syncthreads();
-    // 4 positions per pass, so 4 independent shuffle reductions overlap
-    for (int sl0 = g; sl0 < n_s; sl0 += 4 * G) {
-      float part[4];
+    locf[p * F + f] = rnd<T>(acc[0]);
+    locf[(p + 1) * F + f] = rnd<T>(acc[1]);
+  }
+  __syncthreads();
+  // energies, 4 positions per pass, so 4 independent shuffle reductions overlap
+  for (int p0 = g; p0 < n; p0 += 4 * G) {
+    float part[4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int sl = sl0 + u * G;
-        part[u] = 0.0f;
-        if (sl < n_s) {
-          const float4* lf = reinterpret_cast<const float4*>(locf + sl * F);
-          float loc = 0.0f;
+    for (int u = 0; u < 4; ++u) {
+      const int p = p0 + u * G;
+      part[u] = 0.0f;
+      if (p < n) {
+        const float4* lf = reinterpret_cast<const float4*>(locf + p * F);
+        float loc = 0.0f;
 #pragma unroll
-          for (int f4 = 0; f4 < kMaxF / 4; ++f4) {
-            if (4 * f4 < F) {
-              const float4 x4 = lf[f4];
-              loc = fmaf(x4.x, wl[4 * f4], loc);
-              loc = fmaf(x4.y, wl[4 * f4 + 1], loc);
-              loc = fmaf(x4.z, wl[4 * f4 + 2], loc);
-              loc = fmaf(x4.w, wl[4 * f4 + 3], loc);
-            }
+        for (int f4 = 0; f4 < kMaxF / 4; ++f4) {
+          if (4 * f4 < F) {
+            const float4 x4 = lf[f4];
+            loc = fmaf(x4.x, wl[4 * f4], loc);
+            loc = fmaf(x4.y, wl[4 * f4 + 1], loc);
+            loc = fmaf(x4.z, wl[4 * f4 + 2], loc);
+            loc = fmaf(x4.w, wl[4 * f4 + 3], loc);
           }
-          part[u] = va * rnd<T>(tanhf(q[a] + loc + pms[sl * A + a]));
         }
+        part[u] = va * rnd<T>(tanhf(q[a] + loc + to_f(pms[p * A + a])));
       }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) part[u] += __shfl_xor_sync(0xffffffffu, part[u], o);
-      if (lane == 0)
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          if (sl0 + u * G < n_s) epart[(sl0 + u * G) * WG + wg] = part[u];
     }
-    __syncthreads();
-    for (int sl = tid; sl < n_s; sl += blockDim.x) {
-      float sum = 0.0f;
-      for (int w = 0; w < WG; ++w) sum += epart[sl * WG + w];
-      e[s0 + sl] = sum + addmask[(size_t)b * S + s0 + sl];
-    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) part[u] += __shfl_xor_sync(0xffffffffu, part[u], o);
+    if (lane == 0)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (p0 + u * G < n) epart[(p0 + u * G) * WG + wg] = part[u];
+  }
+  __syncthreads();
+  for (int p = tid; p < n; p += blockDim.x) {
+    float sum = 0.0f;
+    for (int w = 0; w < WG; ++w) sum += epart[p * WG + w];
+    e[p] = sum + madd[p];
   }
   __syncthreads();
 
-  float m = -3.402823466e38f;
-  for (int s = tid; s < S; s += blockDim.x) m = fmaxf(m, e[s]);
-  m = block_reduce<true>(m, red);
-  float sum = 0.0f;
-  for (int s = tid; s < S; s += blockDim.x) {
-    const float ex = expf(e[s] - m);
-    e[s] = ex;
-    sum += ex;
+  // softmax over the row: this CTA's max m and sum of exp(e - m) (warp 0),
+  // exchanged once; the row's max M, and the sums rescaled by exp(m - M)
+  // and added in rank order
+  if (warp == 0) {
+    float m = -3.402823466e38f;
+    for (int p = lane; p < n; p += 32) m = fmaxf(m, e[p]);
+    m = warp_max(m);
+    float sum = 0.0f;
+    for (int p = lane; p < n; p += 32) {
+      const float ex = expf(e[p] - m);
+      e[p] = ex;
+      sum += ex;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      slot[0] = m;
+      slot[1] = sum;
+    }
   }
-  sum = block_reduce<false>(sum, red);
-  for (int s = tid; s < S; s += blockDim.x) {
-    const float w = e[s] / sum;
-    e[s] = w;
-    wprev[(size_t)b * S + s] = w;
-    wcum[(size_t)b * S + s] += w;
+  cl.sync();
+  float mx = -3.402823466e38f, scale[kNC], tot = 0.0f;
+#pragma unroll
+  for (int r = 0; r < kNC; ++r) mx = fmaxf(mx, *cl.map_shared_rank(slot, r));
+#pragma unroll
+  for (int r = 0; r < kNC; ++r) {
+    scale[r] = expf(*cl.map_shared_rank(slot, r) - mx);
+    tot += *cl.map_shared_rank(slot + 1, r) * scale[r];
   }
+  // every weight of the row from its owner's exponentials; this CTA's own
+  // positions also update w_prev and w_cum
+  for (int s = tid; s < S; s += blockDim.x) {
+    const int r = s / geo.Sc;
+    float sc = scale[0];
+#pragma unroll
+    for (int k = 1; k < kNC; ++k) sc = r == k ? scale[k] : sc;
+    const float w = *cl.map_shared_rank(e + (s - r * geo.Sc), r) * sc / tot;
+    wall[s] = rnd<T>(w);
+    if (r == rank) {
+      wprev[(size_t)b * S + s] = w;
+      wcum[(size_t)b * S + s] = wc[s - geo.s0] + w;
+    }
+  }
+  // done reading the other CTAs' shared memory; none of them may exit
+  // before every CTA has arrived here (the wait below)
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
   __syncthreads();
 
-  // context = w . memory: warp w takes positions w, w+8, ..; each lane
-  // accumulates its V-wide slices of E into the warp's row of `cpart`
-  float* cpart = big;  // (blockDim / 32) * E
-  constexpr int V = Vec<T>::N;
-  const int nw = blockDim.x >> 5;
-  for (int k = lane * V; k < E; k += 32 * V) {
-    float acc[V];
-#pragma unroll
-    for (int j = 0; j < V; ++j) acc[j] = 0.0f;
-#pragma unroll 8
-    for (int s = warp; s < S; s += nw) {
-      float mv[V];
-      Vec<T>::load(mem + ((size_t)b * S + s) * E + k, mv);
-      const float ws = rnd<T>(e[s]);
-#pragma unroll
-      for (int j = 0; j < V; ++j) acc[j] = fmaf(ws, mv[j], acc[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < V; ++j) cpart[warp * E + k + j] = acc[j];
-  }
-  __syncthreads();
+  // context = w . memory over this CTA's columns: column group cgi of V
+  // columns, positions ps, ps + ns, .. (partials added in order below)
   float* xa_row = xa + (size_t)b * d.lda;
-  for (int k = tid; k < E; k += blockDim.x) {
-    float acc = 0.0f;
-    for (int w = 0; w < nw; ++w) acc += cpart[w * E + k];
-    xa_row[d.P + k] = acc;
-    xd[(size_t)b * d.ldd + Ha + k] = acc;
-    xp[(size_t)b * d.ldp + d.Hd + k] = acc;
+  if (geo.ncol > 0) {
+    if (ctx_thread) {
+      float acc[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[j] = 0.0f;
+#pragma unroll
+      for (int u = 0; u < kCtxPre; ++u) {
+        const int s = ps + u * ns;
+        if (s < S) {
+          float mv[V];
+          Vec<T>::unpack(mpre[u], mv);
+          const float ws = wall[s];
+#pragma unroll
+          for (int j = 0; j < V; ++j) acc[j] = fmaf(ws, mv[j], acc[j]);
+        }
+      }
+#pragma unroll 4
+      for (int s = ps + kCtxPre * ns; s < S; s += ns) {
+        float mv[V];
+        Vec<T>::load(mem + ((size_t)b * S + s) * E + geo.k0 + cgi * V, mv);
+        const float ws = wall[s];
+#pragma unroll
+        for (int j = 0; j < V; ++j) acc[j] = fmaf(ws, mv[j], acc[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < V; ++j) cpart[ps * geo.ncol + cgi * V + j] = acc[j];
+    }
+    __syncthreads();
+    for (int c = tid; c < geo.ncol; c += blockDim.x) {
+      float acc = 0.0f;
+      for (int j = 0; j < ns; ++j) acc += cpart[j * geo.ncol + c];
+      const int k = geo.k0 + c;
+      xa_row[d.P + k] = acc;
+      xd[(size_t)b * d.ldd + Ha + k] = acc;
+      xp[(size_t)b * d.ldp + d.Hd + k] = acc;
+    }
   }
-  for (int k = tid; k < Ha; k += blockDim.x) xa_row[d.P + E + k] = hq[k];
+  // h_att into the attention LSTM's next input, this CTA's slice of it
+  const int hc = (Ha + kNC - 1) / kNC, h1 = min(Ha, (rank + 1) * hc);
+  for (int k = rank * hc + tid; k < h1; k += blockDim.x) xa_row[d.P + E + k] = hq[k];
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 // Step epilogue, one block: outputs of active rows, finished flags, step count.
@@ -636,9 +811,7 @@ cudaError_t run(const Args& a) {
   const size_t sm_la = (size_t)B * Ka * sizeof(float);
   const size_t sm_ld = (size_t)B * Kd * sizeof(float);
   const size_t sm_pj = (size_t)B * Kp * sizeof(float);
-  const size_t sm_att = (size_t)(kChunk * a.F + att_big(a.A, a.E) + a.Ha + a.A +
-                                 2 * (a.S + a.KL + 3) + a.S + a.KL * 2 * a.F +
-                                 kChunk * (a.A / 32) + 32) * sizeof(float);
+  const size_t sm_att = (size_t)AttGeo::floats(d, Vec<T>::N, sizeof(T)) * sizeof(float);
   cudaError_t err;
   if ((err = smem_attr((const void*)pre_kernel<T, B>, sm_pre)) != cudaSuccess) return err;
   if ((err = smem_attr((const void*)lstm_kernel<T, B>, sm_la > sm_ld ? sm_la : sm_ld)) != cudaSuccess)
@@ -659,7 +832,7 @@ cudaError_t run(const Args& a) {
         a.dropout_on);
     lstm_kernel<T, B><<<(a.Ha + kUnits - 1) / kUnits, gemv_threads, sm_la, s>>>(
         att_w, a.att_b, a.xa, Ka, Ka, a.Ha, a.c_att, a.xd, Kd, a.flags, a.max_steps);
-    att_kernel<T><<<B, kThreads, sm_att, s>>>(
+    att_kernel<T><<<dim3(kNC, B), kThreads, sm_att, s>>>(
         d, static_cast<const T*>(a.wq), static_cast<const T*>(a.locw),
         static_cast<const T*>(a.ldw), static_cast<const T*>(a.v),
         static_cast<const T*>(a.pmem), static_cast<const T*>(a.mem), a.addmask, a.wprev,
@@ -742,8 +915,8 @@ extern "C" int t2v_decode_loop(
     float* out_t, int* flags, float* mel_out, float* gate_out, float* align_out,
     int max_steps, float thr, unsigned int seed, int dropout_on, int check_every,
     void* stream) {
-  if (B < 1 || B > 8 || A % 32 != 0 || kThreads % A != 0 || F > kMaxF || F % 4 != 0 ||
-      P % 16 != 0)
+  if (B < 1 || B > 8 || A % 32 != 0 || A % (4 * kNC) != 0 || kThreads % A != 0 ||
+      F > kMaxF || F % 4 != 0 || P % 16 != 0 || E > 4 * kNC * kThreads)
     return (int)cudaErrorInvalidValue;
   Args a{B, S, E, Ha, Hd, P, A, F, KL, n_out,
          w1, w2, att_w, dec_w, wq, locw, ldw, v, pg_w, mem, pmem,

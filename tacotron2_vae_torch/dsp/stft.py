@@ -12,6 +12,7 @@ DFT-basis product on host-padded rows.
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -29,23 +30,50 @@ def padded_window(win_length: int, n_fft: int) -> np.ndarray:
     return win
 
 
+class Tables(NamedTuple):
+    """Constant tables of the log-mel front end (numpy on the host,
+    tensors from ``device_tables``)."""
+    window: object   # (n_fft,) f32 periodic Hann, centred
+    twiddle: object  # (n_fft, 2) f32: exp(-2 pi i k / n_fft) from float64, K2's FFT
+    cos_b: object    # (n_fft, n_freq) f32 DFT bases of the plain twin
+    sin_b: object
+    fb: object       # (n_mels, n_freq) f32 slaney mel filterbank
+    bands: object    # (n_mels, 3) int32: [start, end) of each band's nonzero bins, offset in melw
+    melw: object     # (nnz,) f32: the bands' weights, packed band after band
+
+
+def mel_bands(fb: np.ndarray):
+    """The filterbank as K2 reads it: per band the [start, end) of its
+    nonzero bins and the offset of its weights in a packed array, and that
+    array (each band's fb[b, start:end] in turn)."""
+    bands = np.zeros((fb.shape[0], 3), np.int32)
+    parts, off = [], 0
+    for b, row in enumerate(fb):
+        nz = np.flatnonzero(row)
+        start, end = (int(nz[0]), int(nz[-1]) + 1) if nz.size else (0, 0)
+        bands[b] = (start, end, off)
+        parts.append(row[start:end])
+        off += end - start
+    return bands, np.concatenate(parts).astype(np.float32)
+
+
 @lru_cache(maxsize=8)
-def _tables(n_fft, win_length, n_mels, sampling_rate, fmin, fmax):
-    """Host tables: window (n_fft,), cos table (n_fft,), DFT bases
-    (n_fft, n_freq) x2, mel filterbank (n_mels, n_freq); numpy fp32."""
+def _tables(n_fft, win_length, n_mels, sampling_rate, fmin, fmax) -> Tables:
+    """The front end's host tables, numpy (see ``Tables``)."""
     m = np.arange(n_fft)
-    costab = np.cos(2.0 * np.pi * m / n_fft).astype(np.float32)
+    w = np.exp(-2j * np.pi * m / n_fft)
+    twiddle = np.stack([w.real, w.imag], axis=1).astype(np.float32)
     k = np.arange(n_fft // 2 + 1)[None, :]
     ang = 2.0 * np.pi * k * m[:, None] / n_fft
     fb = mel_filterbank(sampling_rate, n_fft, n_mels, fmin, fmax)
-    return (padded_window(win_length, n_fft), costab,
-            np.cos(ang).astype(np.float32), (-np.sin(ang)).astype(np.float32), fb)
+    return Tables(padded_window(win_length, n_fft), twiddle, np.cos(ang).astype(np.float32),
+                  (-np.sin(ang)).astype(np.float32), fb, *mel_bands(fb))
 
 
 @lru_cache(maxsize=8)
-def device_tables(device: str, *key):
+def device_tables(device: str, *key) -> Tables:
     """``_tables`` as tensors on ``device`` (cached)."""
-    return [torch.from_numpy(t).to(device) for t in _tables(*key)]
+    return Tables(*(torch.from_numpy(t).to(device) for t in _tables(*key)))
 
 
 def frame_signal(y, n_fft: int, hop_length: int):
@@ -122,11 +150,11 @@ class TacotronSTFT:
         reflect padding, then zero extension) -> (B, n_mels, frames); the
         caller trims each item to its own frame count."""
         y = torch.as_tensor(y, dtype=torch.float32, device=self.device)
-        window, _, cos_b, sin_b, fb = device_tables(str(self.device), *self._key())
-        frames = y.unfold(1, self.filter_length, self.hop_length) * window
-        re, im = frames @ cos_b, frames @ sin_b
+        tab = device_tables(str(self.device), *self._key())
+        frames = y.unfold(1, self.filter_length, self.hop_length) * tab.window
+        re, im = frames @ tab.cos_b, frames @ tab.sin_b
         mag = torch.sqrt(re * re + im * im).transpose(1, 2)  # (B, F, T)
-        return dynamic_range_compression(torch.matmul(fb, mag))
+        return dynamic_range_compression(torch.matmul(tab.fb, mag))
 
 
 def featurize_wavs_chunked(stft: TacotronSTFT, audios, chunk_frames: int = 128,

@@ -17,6 +17,7 @@ including the step whose gate fired; rows emit zeros after they finish.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -25,6 +26,7 @@ from . import _build
 
 MAX_ROWS = 8          # rows one launch serves (the serving micro-batch cap)
 CHECK_EVERY = 8       # steps between host reads of the all-finished flag
+CLUSTER = 8           # CTAs of the attention kernel's cluster per row (kNC in the source)
 _F32_MIN = float(np.finfo(np.float32).min)
 
 # --------------------------------------------------------- dropout hash
@@ -211,9 +213,10 @@ def _ptr(x: torch.Tensor):
     return ctypes.c_void_p(x.data_ptr())
 
 
+@lru_cache(maxsize=None)
 def _kernel_fn():
-    lib = _build.load("decoder_loop")
-    fn = lib.t2v_decode_loop
+    """``t2v_decode_loop`` with its C signature, resolved once."""
+    fn = _build.load("decoder_loop").t2v_decode_loop
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] * 11 + [ctypes.c_void_p] * 27
                    + [ctypes.c_int, ctypes.c_float, ctypes.c_uint, ctypes.c_int,
@@ -244,10 +247,14 @@ def _run_kernel(kw, memory, pmem, mask, *, max_steps, gate_threshold, seed,
                     ("memory", E)):
         if K % vec:
             raise ValueError(f"{name} input width {K} must be a multiple of {vec}")
-    if A % 32 or 256 % A or F > 32 or F % 4 or P % 16:
-        raise ValueError(f"decode_loop needs attention_dim dividing 256 in multiples of 32, "
+    if A % 32 or A % (4 * CLUSTER) or 256 % A or F > 32 or F % 4 or P % 16:
+        raise ValueError(f"decode_loop needs attention_dim dividing 256 in multiples of 32 "
+                         f"(and of 4 rows per CTA of the {CLUSTER}-CTA attention cluster), "
                          f"a multiple of 4 location filters up to 32, and prenet_dim % 16 == 0 "
                          f"(A={A}, F={F}, P={P})")
+    if E > 1024 * CLUSTER:
+        raise ValueError(f"decode_loop takes encoder_embedding_dim up to {1024 * CLUSTER} "
+                         f"(4 per thread of each attention CTA), got E={E}")
     if n_in != n_out or pmem.shape != (B, S, A):
         raise ValueError("inconsistent decoder shapes for decode_loop")
 

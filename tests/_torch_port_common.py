@@ -59,3 +59,18 @@ def t(x):
 
 def n(x):
     return np.asarray(x.detach().float()) if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def log_mel_float64(wav, n_fft, hop=256, n_mels=80, sampling_rate=16000, fmin=0.0,
+                    fmax=8000.0):
+    """K2's function in float64 (numpy): reflect pad, periodic Hann window
+    (win_length = n_fft), |rfft|, slaney mel product, log(max(x, 1e-5));
+    (n_mels, len(wav) // hop + 1)."""
+    from tacotron2_vae_torch.dsp.mel import mel_filterbank
+    from tacotron2_vae_torch.dsp.stft import padded_window
+
+    y = np.pad(np.asarray(wav, np.float64), n_fft // 2, mode="reflect")
+    frames = np.lib.stride_tricks.sliding_window_view(y, n_fft)[::hop]
+    mag = np.abs(np.fft.rfft(frames * padded_window(n_fft, n_fft), axis=1))
+    fb = mel_filterbank(sampling_rate, n_fft, n_mels, fmin, fmax).astype(np.float64)
+    return np.log(np.maximum(mag @ fb.T, 1e-5)).T

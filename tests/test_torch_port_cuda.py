@@ -9,12 +9,19 @@ without one.  They import no JAX, so they also run where JAX is absent:
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
 Tiny widths (``TINY``) with shapes that reach the kernels' partial tiles:
-S below and above the attention kernel's 64-position chunk, frame counts
-that are and are not a multiple of K2's 4-frame block.  Tolerances: K1 per
+S split unevenly over K1's 8-CTA attention cluster in chunks of ceil(S / 8)
+(3: three CTAs of one position and five empty; 13: six of 2, one of 1 and
+an empty last; 70: seven of 9 and one of 7; 16 and 80) at B = 1, 3, 4 and
+8; K2 at even and odd frame counts, at the shortest clip it takes (n =
+n_fft/2 + 1) and at n_fft 512, 1024 and 2048; two calls of K1 and of K2 bit
+for bit alike.
+Tolerances: K1 per
 output, over the first steps and the whole run, by ``chip_smoke.k1_compare``
 (f32: sum order only; bf16: the same casting points, sum order flips a
 rounding now and then, and the flip feeds back); K2 atol 1e-4 as
-tests/test_pallas_stft.py:36; K3 and K4, outputs and every gradient of the
+tests/test_pallas_stft.py:36, against the twin and against the function in
+float64 (the twin's own fp32 DFT is 1.2e-4 off float64 at n_fft 512 on the
+CPU, so the sizes other than 1024 are held to float64 alone); K3 and K4, outputs and every gradient of the
 recurrence, by ``chip_smoke.k34_check`` and its limits ``K34_TOL``, at
 widths whose LSTM input sizes (P+E+H = 176, 2H+E = 212) are not multiples
 of the 64-deep wgmma tiles and whose 4H = 288 is not a multiple of the
@@ -37,7 +44,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_common import TINY, n
+from _torch_port_common import TINY, log_mel_float64, n
 from chip_smoke import k1_compare, k34_check
 from tacotron2_vae_torch.config import create_hparams
 from tacotron2_vae_torch.models import waveglow as twg
@@ -55,25 +62,60 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _decode_inputs(device, dtype, B, S, lengths):
+    """Packed TINY weights and one batch of memory for K1 (30 steps, the
+    gate never fires, prenet dropout on)."""
+    hp = create_hparams(TINY)
+    model = init_weights(Tacotron2(hp), torch.Generator().manual_seed(0))
+    dec = model.to(device).eval().requires_grad_(False).decoder
+    rng = np.random.RandomState(1)
+    memory = torch.from_numpy((rng.randn(B, S, hp.encoder_embedding_dim) * 0.3)
+                              .astype(np.float32)).to(device)
+    lens = torch.tensor(lengths, device=device)
+    mask = torch.arange(S, device=device)[None] < lens[:, None]
+    pmem = linear(memory, dec.attention_layer.memory_layer.linear_layer.weight)
+    kw = dl.pack_weights(dec, getattr(torch, dtype))
+    args = dict(max_steps=30, gate_threshold=1.1, seed=9, dropout_on=True)
+    return (kw, memory, pmem, mask), args
+
+
+def _decode_check(device, dtype, B, S, lengths):
+    inputs, args = _decode_inputs(device, dtype, B, S, lengths)
+    got = dl.decode_loop(*inputs, **args)
+    want = dl.finish(*dl.decode_loop_plain(*inputs, **args), 1.1, 1)
+    errs, fails = k1_compare(got, want, dtype, 1)
+    assert not fails, errs
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S", [(3, 16), (4, 80)], ids=["B3_S16", "B4_S80"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_loop_kernel_matches_twin_on_card(cuda_device, dtype, B, S):
-    hp = create_hparams(TINY)
-    model = init_weights(Tacotron2(hp), torch.Generator().manual_seed(0))
-    dec = model.to(cuda_device).eval().requires_grad_(False).decoder
-    rng = np.random.RandomState(1)
-    memory = torch.from_numpy((rng.randn(B, S, hp.encoder_embedding_dim) * 0.3)
-                              .astype(np.float32)).to(cuda_device)
-    lens = torch.tensor([S, S - 5, S - 9, S // 2][:B], device=cuda_device)
-    mask = torch.arange(S, device=cuda_device)[None] < lens[:, None]
-    pmem = linear(memory, dec.attention_layer.memory_layer.linear_layer.weight)
-    kw = dl.pack_weights(dec, getattr(torch, dtype))
-    args = dict(max_steps=30, gate_threshold=1.1, seed=9, dropout_on=True)
-    got = dl.decode_loop(kw, memory, pmem, mask, **args)
-    want = dl.finish(*dl.decode_loop_plain(kw, memory, pmem, mask, **args), 1.1, 1)
-    errs, fails = k1_compare(got, want, dtype, 1)
-    assert not fails, errs
+    _decode_check(cuda_device, dtype, B, S, [S, S - 5, S - 9, S // 2][:B])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [3, 13, 70])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_loop_attention_cluster_splits_on_card(cuda_device, dtype, B, S):
+    """S over the cluster's CTAs in chunks of ceil(S / 8): 3 leaves five CTAs
+    no position, 13 leaves the last one none; every row masked to its own
+    length."""
+    _decode_check(cuda_device, dtype, B, S, [max(1, S - 2 * i) for i in range(B)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_loop_kernel_is_deterministic_on_card(cuda_device, dtype):
+    """Two K1 calls give the same bits: the softmax sums and the context
+    partials have one owner and a fixed order (no float atomics)."""
+    inputs, args = _decode_inputs(cuda_device, dtype, 8, 70, [70 - 7 * i for i in range(8)])
+    first = [x.clone() for x in dl.decode_loop(*inputs, **args)]
+    second = dl.decode_loop(*inputs, **args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -88,6 +130,41 @@ def test_stft_mel_kernel_matches_twin_on_card(cuda_device, n_samples):
     want = sm.mel_spectrogram_plain(wav, *args)
     assert got.shape == (1, 80, n_samples // 256 + 1)
     np.testing.assert_allclose(n(got.cpu()), n(want.cpu()), atol=1e-4, rtol=0)
+
+
+def _clip(n_samples):
+    rng = np.random.RandomState(0)
+    x = (0.4 * np.sin(2 * np.pi * 440 * np.arange(n_samples) / 16000)
+         + 0.01 * rng.randn(n_samples))
+    return np.clip(x, -1, 1).astype(np.float32)
+
+
+# (samples, n_fft): 36 and 35 frames; the shortest clip K2 takes; other n_fft
+K2_EDGES = {"even_frames": (9000, 1024), "odd_frames": (8800, 1024),
+            "shortest_clip": (513, 1024), "n_fft512": (9000, 512), "n_fft2048": (9000, 2048)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K2_EDGES)
+def test_stft_mel_kernel_edges_on_card(cuda_device, case):
+    n_samples, n_fft = K2_EDGES[case]
+    wav = _clip(n_samples)
+    args = (n_fft, 256, n_fft, 80, 16000, 0.0, 8000.0)
+    got = sm.mel_spectrogram_fused(torch.from_numpy(wav).to(cuda_device), *args)
+    assert got.shape == (1, 80, n_samples // 256 + 1)
+    np.testing.assert_allclose(n(got.cpu())[0], log_mel_float64(wav, n_fft), atol=1e-4, rtol=0)
+    if n_fft == 1024:
+        want = sm.mel_spectrogram_plain(torch.from_numpy(wav).to(cuda_device), *args)
+        np.testing.assert_allclose(n(got.cpu()), n(want.cpu()), atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_stft_mel_kernel_is_deterministic_on_card(cuda_device):
+    wav = torch.from_numpy(_clip(48000)).to(cuda_device)
+    first = sm.mel_spectrogram_fused(wav).clone()
+    second = sm.mel_spectrogram_fused(wav)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 ODD = TINY + ",prenet_dim=36,encoder_embedding_dim=68,symbols_embedding_dim=68," \
