@@ -5,6 +5,7 @@
     python3 chip_smoke.py --k34      # build, then only the K3/K4 checks
     python3 chip_smoke.py --k56      # build, then only K5/K6 and the probes' entry
     python3 chip_smoke.py --k12      # build K1/K2 alone: their checks, then their timings
+    python3 chip_smoke.py --dp       # build, then only the data-parallel checks (train_dp)
 
 1. Environment: torch/CUDA versions, the card's name and power limit.
 2. Kernels: builds every CUDA kernel of the port from ``csrc/`` (one nvcc
@@ -28,9 +29,20 @@
    shape.
 3. Train: 11 ``make_train_step`` steps on a fixed full-width batch (B=64,
    S=128, T=512, bf16) with random weights from the seed (ms/step, mel
-   frames/s, peak memory; the loss must fall), then the real entry point
-   ``training.train.train`` on a synthetic corpus of 128 + 16 clips through
-   a validation, a checkpoint and a resume.  K2, K3 and K4 must launch.
+   frames/s, peak memory; the loss must fall), 10 more back to back (one
+   synchronise), one under ``torch.cuda.set_sync_debug_mode("error")`` (no
+   host sync allowed); then the real entry point ``training.train.train``
+   on a synthetic corpus of 128 + 16 clips through a validation, a
+   checkpoint and a resume (K2 from the loader's threads); ``train()`` at
+   B=64 on 1024 clips with the reference corpus's texts, its input
+   pipeline and metric window at their defaults against all at 1, in
+   turns, with the card's busy share from a trace (``train_pipeline``);
+   data parallel: ``train()`` under torchrun's environment at world 1 on
+   NCCL against the plain run, and two gloo ranks on the card against one
+   process, losses and state after 3 steps (``train_dp``, through
+   ``tools/multihost_dryrun.py``).  K2, K3 and K4 must launch; K3/K4 must
+   instantiate at most one graph per batch shape not among the last
+   ``GRAPHS``.
 4. Probe entry: ``tacotron2_vae_torch.tools.reshape_probe.main`` on the
    card; all four probes must report correct (K5 and K6 launch there).
 5. Serve: a full-width ``Synthesizer`` with random weights from a fixed seed
@@ -842,6 +854,7 @@ def k12_phase(model, hp, device):
 
 TRAIN_SHAPE = (64, 128, 512)   # B, S, T of the steady-state steps
 TRAIN_STEPS = 10               # timed steps after one warm-up step
+PIPELINED = 10                 # then steps back to back, one synchronise at the end
 KO_TEXTS = ["안녕하세요. 오늘은 날씨가 참 좋네요.", "감사합니다, 다음에 또 만나요.",
             "반갑습니다, 만나서 정말 기뻐요.", "내일 아침에 다시 연락드릴게요.",
             "이 문장은 학습용 합성 데이터입니다.", "바람이 불고 비가 내리는 저녁이에요."]
@@ -872,8 +885,12 @@ def fixed_batch(hp, device):
 
 def steady_steps(hp, device):
     """``make_train_step`` on one fixed full-width batch: ms per step by
-    CUDA events, mel frames per second, peak device memory; the loss and
-    the gradient norm must stay finite and the loss fall."""
+    CUDA events with a synchronise after each step, then ``PIPELINED``
+    steps back to back with one synchronise at the end, then one step with
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises at any call
+    that makes the host wait for the card (the step must make none); mel
+    frames per second, peak device memory.  The loss and the gradient norm
+    must stay finite and the loss fall."""
     import torch
     from tacotron2_vae_torch.ops import teacher_fwd as tf
     from tacotron2_vae_torch.training.train_state import create_train_state, make_train_step
@@ -885,32 +902,60 @@ def steady_steps(hp, device):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tf.teacher_fwd.launches = tf.teacher_bwd.launches = 0
-    captures = tf.graph_captures()
-    metrics, times = [], []
+    captures, updates = tf.graph_captures(), tf.graph_updates()
+    n_steps = TRAIN_STEPS + 1 + PIPELINED + 1
+    metrics = []
+
+    def run(i):
+        m = step(ts, batch, gen)
+        metrics.append(torch.stack([m["loss"], m["grad_norm"], m["updated"].float()]))
+
+    times = []
     for i in range(TRAIN_STEPS + 1):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        metrics.append(step(ts, batch, gen))
+        run(i)
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(TRAIN_STEPS + 1, TRAIN_STEPS + 1 + PIPELINED):
+        run(i)
+    end.record()
+    torch.cuda.synchronize()
+    pipelined = start.elapsed_time(end) / PIPELINED
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run(n_steps - 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    metrics = torch.stack(metrics).cpu().tolist()
     launches = {"K3": tf.teacher_fwd.launches, "K4": tf.teacher_bwd.launches}
     captures = {k: v - captures[k] for k, v in tf.graph_captures().items()}
+    updates = {k: v - updates[k] for k, v in tf.graph_updates().items()}
     B, S, T = TRAIN_SHAPE
     ms = sum(times[1:]) / TRAIN_STEPS
     row = {"phase": "train_steady", "B": B, "S": S, "T": T, "steps": TRAIN_STEPS,
-           "ms_per_step": ms, "ms_per_step_each": times, "mel_frames_per_s": B * T / ms * 1e3,
+           "ms_per_step": ms, "ms_per_step_pipelined": pipelined,
+           "pipelined_steps": PIPELINED, "ms_per_step_each": times,
+           "mel_frames_per_s": B * T / ms * 1e3,
+           "mel_frames_per_s_pipelined": B * T / pipelined * 1e3,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "loss": [m["loss"] for m in metrics], "grad_norm": [m["grad_norm"] for m in metrics],
-           "launches": launches, "graph_captures": captures}
+           "loss": [m[0] for m in metrics], "grad_norm": [m[1] for m in metrics],
+           "sync_debug_step": "no host sync", "launches": launches,
+           "graph_captures": captures, "graph_updates": updates}
     print(json.dumps(row), flush=True)
     losses = row["loss"]
     if not all(math.isfinite(v) for v in losses + row["grad_norm"]):
         raise AssertionError(f"non-finite loss or grad norm: {losses} {row['grad_norm']}")
-    if not (all(m["updated"] for m in metrics) and losses[-1] < losses[0]):
-        raise AssertionError(f"the loss did not fall over {len(losses)} steps: {losses}")
-    if launches["K3"] != TRAIN_STEPS + 1 or launches["K4"] != TRAIN_STEPS + 1:
+    if not (all(m[2] == 1.0 for m in metrics) and losses[TRAIN_STEPS] < losses[0]):
+        raise AssertionError(f"the loss did not fall over {TRAIN_STEPS + 1} steps: {losses}")
+    if launches["K3"] != n_steps or launches["K4"] != n_steps:
         raise AssertionError(f"the train steps did not run through K3/K4: {launches}")
+    if max(captures.values()) > 1:
+        raise AssertionError(f"K3/K4 instantiated more than one graph for one batch shape: "
+                             f"{captures}")
     return row
 
 
@@ -967,6 +1012,229 @@ def train_entry(hp, device, tmp):
         raise AssertionError(f"missing checkpoints: {row['checkpoints']}")
     if min(launches.values()) < 1:
         raise AssertionError(f"train() did not run through K2/K3/K4: {launches}")
+    return row
+
+
+PIPE_ITERS = 16       # batches of 64 in train_pipeline's corpus (one epoch)
+PIPE_WARM = 3         # iterations before the steady s/it and the trace
+PIPE_TRACED = 5       # iterations under utils.profiling.trace
+# (prefetch_depth, log_fetch_window, num_workers): the defaults, then all 1
+PIPE_CONFIGS = {"defaults": (2, 16, 4), "serial": (1, 1, 1)}
+PIPE_ORDER = ("defaults", "serial", "serial", "defaults")
+
+
+def train_pipeline(hp, device, tmp):
+    """The real ``train()`` at full width (B=64, bf16) on a synthetic
+    corpus of ``PIPE_ITERS`` batches (``profile_train.synthetic_corpus``:
+    texts of the reference corpus's train filelist, clips as long as their
+    texts), mel cache warmed first: the defaults (prefetch 2 deep, metrics
+    fetched 16 steps at a time, 4 loader workers) against all three at 1,
+    in turns (defaults, serial, serial, defaults).  Each run's steady s/it
+    (CUDA events after each queued step, from iteration ``PIPE_WARM``),
+    batch shapes, K2/K3/K4 launches and K3/K4 graphs instantiated and
+    updated per iteration; then one run with the defaults whose iterations
+    ``PIPE_WARM .. PIPE_WARM + 4`` are traced, the card's activity alone
+    (its busy ms per iteration, longest idle gaps); each untraced run's
+    busy share is that busy ms over its s/it.  K3 and K4 must launch once
+    an iteration; each must instantiate no more graphs than there are
+    batches whose shape is not among the last ``GRAPHS`` shapes; the
+    native data-IO library must load."""
+    from tacotron2_vae_torch import profile_train as pt
+    from tacotron2_vae_torch.data import native
+    from tacotron2_vae_torch.data.dataset import TextMelDataset
+
+    flist = pt.synthetic_corpus(tmp, PIPE_ITERS * hp.batch_size, seed=SEED, name="pipe")
+    base = hp.replace(training_files=flist, validation_files=flist, epochs=1,
+                      iters_per_checkpoint=10 ** 6)
+    t0 = time.perf_counter()
+    warmed = TextMelDataset(flist, base, device=str(device)).warm_mel_cache()
+    warm_s = time.perf_counter() - t0
+    runs = []
+    for name in PIPE_ORDER:
+        depth, window, workers = PIPE_CONFIGS[name]
+        cfg = base.replace(prefetch_depth=depth, log_fetch_window=window, num_workers=workers)
+        run = pt.loop_run(cfg, device, os.path.join(tmp, f"pipe_{name}"), warm=PIPE_WARM)
+        runs.append(dict(run, config=name))
+    traced = pt.loop_run(base, device, os.path.join(tmp, "pipe_traced"), warm=PIPE_WARM,
+                         traced=PIPE_TRACED, trace_dir=OUT_DIR)
+    s_per_it = {name: [r["s_per_it"] for r in runs if r["config"] == name]
+                for name in PIPE_CONFIGS}
+    # the card's busy ms a traced iteration over the untraced runs' s/it
+    busy_share = {name: [traced["device_ms_per_it"] / (v * 1e3) for v in s_per_it[name]]
+                  for name in PIPE_CONFIGS}
+    row = {"phase": "train_pipeline", "B": hp.batch_size, "iterations": PIPE_ITERS,
+           "steady_from": PIPE_WARM, "mels_warmed": warmed, "warm_cache_s": warm_s,
+           "native_available": native.available(), "s_per_it": s_per_it,
+           "busy_share": busy_share, "runs": runs, "traced": traced}
+    print(json.dumps(row), flush=True)
+    if not row["native_available"]:
+        raise AssertionError("the native data-IO library did not build or load")
+    for r in runs + [traced]:
+        if r["iterations"] != PIPE_ITERS:
+            raise AssertionError(f"train() ran {r['iterations']} iterations: {r}")
+        if r["launches"]["K3"] != PIPE_ITERS or r["launches"]["K4"] != PIPE_ITERS:
+            raise AssertionError(f"train() did not run each step through K3/K4: {r}")
+        # one graph per batch shape that is not among the last GRAPHS shapes
+        if max(r["graph_captures_per_it"].values()) * PIPE_ITERS > r["graph_misses_at_most"]:
+            raise AssertionError(f"K3/K4 graph captures not bounded: {r}")
+    if not 0.0 < traced["busy_share"] <= 1.0:
+        raise AssertionError(f"no device time in the traced iterations: {traced}")
+    return row
+
+
+DP_STEPS = 3           # steps of the two-rank run against one process
+DP_ITERS = 4           # batches of the world-1 NCCL run's corpus
+# Two ranks of B=32 against one process of B=64, bf16, three steps: the
+# recurrence kernels tile each rank's 32 rows differently from 64, so
+# roundings differ in bf16; the loss is a mean over ~3M terms.  Measured
+# 1.15e-4 (H100 80GB HBM3, 700 W; PERF.md).
+DP_LOSS_RTOL = 1e-3
+# The state after DP_STEPS (parameters and running statistics) of rank 0
+# against the one process: |two - one| / |one - first|, the norms over every
+# float entry.  Adam moves an element whose gradient is rounding noise
+# (a bias before a batchnorm) by +-lr a step either way, so this is not 0.
+DP_STATE_RTOL = 0.1
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _draw_elements(hp, B, S, T):
+    """Random numbers one train step draws at batch B (dropout masks of the
+    prenet, encoder and postnet, the recurrent masks, the VAE's noise)."""
+    return (2 * B * T * hp.prenet_dim
+            + hp.encoder_n_convolutions * B * S * hp.encoder_embedding_dim
+            + B * T * ((hp.postnet_n_convolutions - 1) * hp.postnet_embedding_dim
+                       + hp.n_mel_channels)
+            + 2 * T * B * (hp.attention_rnn_dim + hp.decoder_rnn_dim)
+            + B * hp.z_latent_dim)
+
+
+def train_dp(hp, device, tmp):
+    """Data parallelism on the one card.  (1) ``train()`` under
+    torchrun's environment at world 1 (NCCL) against the plain process on
+    the same corpus of ``DP_ITERS`` batches: the iterations and the CSV's
+    losses and norms must be equal.  (2) Two ranks over gloo on the card,
+    each a ``tools/multihost_dryrun.py`` process of 32 rows of the fixed
+    full-width batch, ``DP_STEPS`` steps, against one such process on all
+    64 rows: losses within ``DP_LOSS_RTOL``, rank 0's state after the
+    steps within ``DP_STATE_RTOL`` of the process's, K3 and K4 launched in
+    each rank.  (3) What drawing every random number at the global batch's shape
+    costs a rank of a 2-way run: one step's draws at B=64 against B=32,
+    timed on the card."""
+    import numpy as np
+    import torch
+    from tacotron2_vae_torch import profile_train as pt
+    from tacotron2_vae_torch.parallel import mesh
+    from tacotron2_vae_torch.training import train as tr
+
+    flist = pt.synthetic_corpus(tmp, DP_ITERS * hp.batch_size, seed=SEED + 1, name="dp")
+    cfg = hp.replace(training_files=flist, validation_files=flist, epochs=1,
+                     iters_per_checkpoint=10 ** 6, log_fetch_window=2)
+
+    def csv_rows(out):
+        with open(os.path.join(out, "logs", "metrics.csv")) as f:
+            return [line.split(",")[:3] for line in f.readlines()[1:]]
+
+    plain_out, dp_out = os.path.join(tmp, "dp_plain"), os.path.join(tmp, "dp_world1")
+    tr.train(plain_out, "logs", None, False, cfg, device=str(device))
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(_free_port())}
+    os.environ.update(env)
+    try:
+        tr.train(dp_out, "logs", None, False, cfg, device=str(device))
+        backend = torch.distributed.get_backend()
+    finally:
+        mesh.shutdown()
+        for k in env:
+            os.environ.pop(k, None)
+    plain, world1 = csv_rows(plain_out), csv_rows(dp_out)
+
+    batch = fixed_batch(hp, device)
+    npz = os.path.join(tmp, "dp_batch.npz")
+    np.savez(npz, **{k: v.cpu().numpy() for k, v in batch.items()})
+    child_env = {k: v for k, v in os.environ.items()
+                 if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                              "MASTER_PORT")}
+    child_env["PYTHONPATH"] = ROOT
+    common = ["-m", "tacotron2_vae_torch.tools.multihost_dryrun", "--batch", npz,
+              "--full-width", "--steps", str(DP_STEPS)]
+    procs = {
+        "one": subprocess.Popen([sys.executable, *common, "--out",
+                                 os.path.join(tmp, "dp_one.pt")],
+                                cwd=ROOT, env=child_env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True),
+        "two": subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                 "--nproc_per_node=2", *common, "--backend", "gloo",
+                                 "--out", os.path.join(tmp, "dp_two.pt")],
+                                cwd=ROOT, env=child_env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)}
+    logs = {}
+    for name, proc in procs.items():
+        try:
+            logs[name], _ = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    with open(os.path.join(OUT_DIR, "chip_smoke_dp.log"), "w") as f:
+        for name, log in logs.items():
+            f.write(f"== {name}\n{log}\n")
+    for name, proc in procs.items():
+        if proc.returncode != 0:
+            raise AssertionError(f"dryrun {name} failed ({proc.returncode}): "
+                                 f"{logs[name][-2000:]}")
+    ranks = {name: [json.loads(line[len("DRYRUN "):]) for line in logs[name].splitlines()
+                    if line.startswith("DRYRUN ")] for name in logs}
+
+    B, S, T = TRAIN_SHAPE
+    draws = {}
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    for rows in (B // 2, B):
+        n = _draw_elements(hp, rows, S, T)
+        torch.rand(n, generator=gen, device=device)
+        draws[rows] = cuda_ms(lambda: torch.rand(n, generator=gen, device=device), 20)
+    one, two = ranks["one"][0], ranks["two"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(two[0]["loss"], one["loss"]))
+    saved = {name: torch.load(os.path.join(tmp, f"dp_{name}.pt"), weights_only=True)
+             for name in ("one", "two")}
+    moved = diff = 0.0
+    for k, v in saved["one"]["state_dict"].items():
+        if v.is_floating_point():
+            first = saved["one"]["init_state_dict"][k].double()
+            if not torch.equal(saved["two"]["init_state_dict"][k].double(), first):
+                raise AssertionError(f"the two runs did not start from one state: {k}")
+            moved += (v.double() - first).pow(2).sum().item()
+            diff += (saved["two"]["state_dict"][k].double() - v.double()).pow(2).sum().item()
+    state_err = (diff / moved) ** 0.5
+    row = {"phase": "train_dp", "world1_backend": backend, "world1_iterations": len(world1),
+           "world1_equal": world1 == plain, "world1_rows": world1,
+           "two_ranks": {"backend": "gloo", "B": B, "rows_per_rank": B // 2,
+                         "steps": DP_STEPS, "loss_one": one["loss"],
+                         "loss_two": [r["loss"] for r in two],
+                         "grad_norm_one": one["grad_norm"],
+                         "grad_norm_two": [r["grad_norm"] for r in two],
+                         "loss_rel_err": loss_err, "loss_rtol": DP_LOSS_RTOL,
+                         "state_rel_err": state_err, "state_rtol": DP_STATE_RTOL,
+                         "launches": [r["launches"] for r in two]},
+           "draw_elements_per_step": {"rank_rows": _draw_elements(hp, B // 2, S, T),
+                                      "global_rows": _draw_elements(hp, B, S, T)},
+           "draw_ms_per_step": {"rank_rows": draws[B // 2], "global_rows": draws[B]}}
+    print(json.dumps(row), flush=True)
+    if backend != "nccl" or len(world1) != DP_ITERS or world1 != plain:
+        raise AssertionError(f"world-1 train() differs from the plain run: {world1} {plain}")
+    if len(two) != 2 or any(r["world"] != 2 for r in two):
+        raise AssertionError(f"the two-rank run did not report two ranks: {two}")
+    if (two[0]["loss"] != two[1]["loss"] or loss_err > DP_LOSS_RTOL
+            or state_err > DP_STATE_RTOL):
+        raise AssertionError(f"two ranks do not match one process: {row['two_ranks']}")
+    if any(min(r["launches"]["K3"], r["launches"]["K4"]) < DP_STEPS for r in two):
+        raise AssertionError(f"a rank did not run through K3/K4: {row['two_ranks']}")
     return row
 
 
@@ -1350,6 +1618,10 @@ def main() -> int:
         return 0
     hp = create_hparams()
     model = random_model(hp, device)
+    if "--dp" in sys.argv[1:]:  # the data-parallel checks alone
+        with tempfile.TemporaryDirectory() as tmp:
+            train_dp(hp, device, tmp)
+        return 0
     if "--k34" in sys.argv[1:]:  # the recurrence kernels' checks alone
         k34_phase(model, device)
         return 0
@@ -1366,12 +1638,19 @@ def main() -> int:
         entry = train_entry(hp, device, tmp)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
+        pipeline = train_pipeline(hp, device, tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        dp = train_dp(hp, device, tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
         results, launches = serve_phase(model, hp, device, tmp)
     probes = probe_entry()
     launches.update({k: entry["launches"][k] for k in ("K3", "K4")}, **probes["launches"])
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernel_checks": rows + k56_rows + k34_rows,
-                   "requests": results, "train": [steady, entry], "probes": probes,
+                   "requests": results, "train": [steady, entry, pipeline, dp],
+                   "probes": probes,
                    "launches": launches}, f, indent=1)
 
     t = k34["row"]

@@ -513,7 +513,7 @@ cudaError_t run(BwdAtt ba, const float* wq, const void* attn_w_, const void* dec
                 const float* c_att_prev, const float* c_dec_prev, const float* h_att,
                 void* dg_att_, void* dg_dec_, float* dpn, float* dv, float* dwq, float* dwld,
                 float* dx_dec, float* dh_att_c, float* dc_att, float* dc_dec, float* part,
-                float* qpart, bool graph, const std::vector<uint64_t>& key, cudaStream_t st) {
+                float* qpart, bool graph, const GraphKey& key, cudaStream_t st) {
   const Dims d = ba.d;
   const T* attn_w = static_cast<const T*>(attn_w_);
   const T* dec_w = static_cast<const T*>(dec_w_);
@@ -621,7 +621,7 @@ extern "C" int t2v_teacher_bwd(
                   dctx_c, dw_prev_c, dwcum_c,
                   dctx_tot, dq, dv_part, dwld_part, dpmem, dloc};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const std::vector<uint64_t> key = make_key(
+  const GraphKey key = make_key(
       dtype, T, B, S, E, H, P, A, F, K, attn_w, dec_w, query_w, loc_w, loc_dense_w, v, memory,
       pmem, m1, m2, m3, m4, dh_dec, dctx, dw, g_att, g_dec, c_att_prev, c_dec_prev, h_att, w_seq,
       w_cum_prev, dg_att, dg_dec, dpn, dctx_tot, dloc, dv, dwq, dwld, dpmem, dx_dec, dh_att_c,
@@ -637,8 +637,15 @@ extern "C" int t2v_teacher_bwd(
   return (int)err;
 }
 
-// Step-loop graphs captured so far by t2v_teacher_bwd (replays add none).
+// Step-loop graphs instantiated so far by t2v_teacher_bwd (replays and
+// updates add none).
 extern "C" int t2v_teacher_bwd_graph_captures() {
   std::lock_guard<std::mutex> lock(graphs.mu);
   return graphs.captures;
+}
+
+// Graphs given new pointers in place so far by t2v_teacher_bwd.
+extern "C" int t2v_teacher_bwd_graph_updates() {
+  std::lock_guard<std::mutex> lock(graphs.mu);
+  return graphs.updates;
 }

@@ -410,61 +410,95 @@ inline cudaError_t smem_attr(const void* fn, size_t bytes) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// The executable CUDA graphs of the last kGraphs recurrence calls of one
-// direction, most recent first, with the arguments each was captured with.
+// The executable CUDA graphs of the last kGraphs sets of sizes a direction
+// was called with, most recent first.  A call's key is its sizes (dims) and
+// its argument pointers (ptrs); an entry holds the pointers its graph now
+// launches with.
 constexpr int kGraphs = 4;
+struct GraphKey {
+  std::vector<uint64_t> dims, ptrs;
+};
+struct GraphEntry {
+  GraphKey key;
+  cudaGraphExec_t exec;
+};
 struct GraphCache {
   std::mutex mu;
-  std::vector<std::pair<std::vector<uint64_t>, cudaGraphExec_t>> entries;
-  int captures = 0;  // graphs captured so far (a replay adds none)
+  std::vector<GraphEntry> entries;
+  int captures = 0;  // graphs instantiated so far (a replay or an update adds none)
+  int updates = 0;   // graphs given new pointers in place (cudaGraphExecUpdate)
 };
 
-inline void key_push(std::vector<uint64_t>& k, const void* p) {
-  k.push_back(reinterpret_cast<uintptr_t>(p));
+inline void key_push(GraphKey& k, const void* p) {
+  k.ptrs.push_back(reinterpret_cast<uintptr_t>(p));
 }
-inline void key_push(std::vector<uint64_t>& k, int v) { k.push_back(static_cast<uint32_t>(v)); }
+inline void key_push(GraphKey& k, int v) { k.dims.push_back(static_cast<uint32_t>(v)); }
 template <typename... Ts>
-std::vector<uint64_t> make_key(Ts... xs) {
-  std::vector<uint64_t> k;
+GraphKey make_key(Ts... xs) {
+  GraphKey k;
   (key_push(k, xs), ...);
   return k;
 }
 
-// Run `enqueue(stream)` (a whole recurrence) on st: launched kernel by
-// kernel (graph false), or as one CUDA graph.  A graph is replayed when the
-// call's arguments (pointers and sizes) equal those of one of the last
-// kGraphs calls, as in a training loop whose tensors come back at the same
-// few addresses from PyTorch's caching allocator; else the loop is captured
-// on a stream of its own (the caller's may be the legacy default stream,
-// which cannot be captured), instantiated and kept in place of the oldest.
+// Record `enqueue` (a whole recurrence) into a new graph on a stream of its
+// own: the caller's may be the legacy default stream, which cannot be
+// captured, and thread-local capture leaves other threads' launches alone.
 template <typename F>
-cudaError_t launch_loop(F&& enqueue, bool graph, GraphCache& cache,
-                        const std::vector<uint64_t>& key, cudaStream_t st) {
+cudaError_t capture(F&& enqueue, cudaGraph_t* g) {
+  cudaStream_t cs = nullptr;
+  cudaError_t err = cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal)) == cudaSuccess) {
+    enqueue(cs);
+    const cudaError_t launch_err = cudaGetLastError();
+    err = cudaStreamEndCapture(cs, g);
+    if (err == cudaSuccess) err = launch_err;
+  }
+  cudaStreamDestroy(cs);
+  return err;
+}
+
+// Run `enqueue(stream)` (a whole recurrence) on st: launched kernel by
+// kernel (graph false), or as one CUDA graph.  The graph of the call's sizes
+// is replayed as it is when the pointers are those it holds.  New pointers
+// (a training loop's tensors come back at shifting addresses) are patched
+// into it: the loop is captured again and the executable graph updated in
+// place, with no new instantiation.  Sizes not seen among the last kGraphs
+// are captured and instantiated in place of the oldest.
+template <typename F>
+cudaError_t launch_loop(F&& enqueue, bool graph, GraphCache& cache, const GraphKey& key,
+                        cudaStream_t st) {
   if (!graph) {
     enqueue(st);
     return cudaGetLastError();
   }
   std::lock_guard<std::mutex> lock(cache.mu);
   auto& es = cache.entries;
-  for (size_t i = 0; i < es.size(); ++i) {
-    if (es[i].first != key) continue;
-    std::rotate(es.begin(), es.begin() + i, es.begin() + i + 1);
-    return cudaGraphLaunch(es.front().second, st);
+  const auto it = std::find_if(es.begin(), es.end(),
+                               [&](const GraphEntry& e) { return e.key.dims == key.dims; });
+  const bool seen = it != es.end();
+  if (seen) {
+    std::rotate(es.begin(), it, it + 1);
+    if (es.front().key.ptrs == key.ptrs) return cudaGraphLaunch(es.front().exec, st);
   }
-  cudaStream_t cs = nullptr;
   cudaGraph_t g = nullptr;
-  cudaGraphExec_t exec = nullptr;
-  cudaError_t err = cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking);
-  if (err != cudaSuccess) return err;
-  if ((err = cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal)) == cudaSuccess) {
-    enqueue(cs);
-    const cudaError_t launch_err = cudaGetLastError();
-    err = cudaStreamEndCapture(cs, &g);
-    if (err == cudaSuccess) err = launch_err;
+  cudaError_t err = capture(enqueue, &g);
+  if (err == cudaSuccess && seen) {
+    // an update changes the launches to come, not one already in flight
+    cudaGraphExecUpdateResultInfo info;
+    if (cudaGraphExecUpdate(es.front().exec, g, &info) == cudaSuccess) {
+      cudaGraphDestroy(g);
+      es.front().key.ptrs = key.ptrs;
+      ++cache.updates;
+      return cudaGraphLaunch(es.front().exec, st);
+    }
+    cudaGetLastError();  // the topology changed: instantiate anew below
+    cudaGraphExecDestroy(es.front().exec);
+    es.erase(es.begin());
   }
+  cudaGraphExec_t exec = nullptr;
   if (err == cudaSuccess) err = cudaGraphInstantiate(&exec, g, 0);
   if (g) cudaGraphDestroy(g);
-  cudaStreamDestroy(cs);
   if (err != cudaSuccess) {
     if (exec) cudaGraphExecDestroy(exec);
     return err;
@@ -472,7 +506,7 @@ cudaError_t launch_loop(F&& enqueue, bool graph, GraphCache& cache,
   ++cache.captures;
   if ((int)es.size() == kGraphs) {
     // an executable graph still in flight is freed when its launch completes
-    cudaGraphExecDestroy(es.back().second);
+    cudaGraphExecDestroy(es.back().exec);
     es.pop_back();
   }
   es.insert(es.begin(), {key, exec});

@@ -56,9 +56,8 @@
 // to 6.7 us (K3) and 9.4 to 10.4 us (K4) between its kernels, replayed from
 // a graph about 1 us; capturing and instantiating a call's 2,051- or
 // 3,074-node graph costs 12-16 or 23-34 ms, so the graphs of the last four
-// argument sets are kept (launch_loop in teacher_common.cuh): a training
-// loop's tensors come back at the same few addresses, and its steady steps
-// captured 2 graphs per direction in 11 steps.
+// sets of sizes are kept (launch_loop in teacher_common.cuh), and a call at
+// known sizes with new pointers updates its graph in place.
 // No float atomics: every sum has one owner and a fixed order.
 
 #include "teacher_common.cuh"
@@ -415,7 +414,7 @@ cudaError_t run(const Dims& d, const void* attn_w_, const float* attn_b, const v
                 const float* dec_b, FwdAtt fa, const float* prenet, const void* m1_,
                 const void* m2_, const void* m3_, const void* m4_, float* h_dec, float* h_att,
                 void* g_att_, void* g_dec_, float* c_att, float* c_dec, Scratch sc, bool graph,
-                const std::vector<uint64_t>& key, cudaStream_t st) {
+                const GraphKey& key, cudaStream_t st) {
   const T* attn_w = static_cast<const T*>(attn_w_);
   const T* dec_w = static_cast<const T*>(dec_w_);
   const T *m1 = static_cast<const T*>(m1_), *m2 = static_cast<const T*>(m2_);
@@ -536,7 +535,7 @@ extern "C" int t2v_teacher_fwd(
                   w, wcum, ctx, nullptr, nullptr, 0, 0};
   const Scratch sc{part, qpart, static_cast<__nv_bfloat16*>(xa), static_cast<__nv_bfloat16*>(xd)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const std::vector<uint64_t> key =
+  const GraphKey key =
       make_key(dtype, T, B, S, E, H, P, A, F, K, attn_w, attn_b, dec_w, dec_b, query_w, loc_w,
                loc_dense_w, v, prenet, memory, pmem, add_mask, m1, m2, m3, m4, h_dec, ctx, w,
                g_att, g_dec, c_att, c_dec, h_att, wcum, zeros, part, qpart, xa, xd);
@@ -549,8 +548,15 @@ extern "C" int t2v_teacher_fwd(
   return (int)err;
 }
 
-// Step-loop graphs captured so far by t2v_teacher_fwd (replays add none).
+// Step-loop graphs instantiated so far by t2v_teacher_fwd (replays and
+// updates add none).
 extern "C" int t2v_teacher_fwd_graph_captures() {
   std::lock_guard<std::mutex> lock(graphs.mu);
   return graphs.captures;
+}
+
+// Graphs given new pointers in place so far by t2v_teacher_fwd.
+extern "C" int t2v_teacher_fwd_graph_updates() {
+  std::lock_guard<std::mutex> lock(graphs.mu);
+  return graphs.updates;
 }

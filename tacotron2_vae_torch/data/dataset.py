@@ -8,21 +8,47 @@ real frame on, and batches padded to bucketed lengths.  Mels come from the
 port's ``TacotronSTFT`` on the trainer's device, so on the card a clip is
 featurised by kernel K2; they are cached as ``.npy`` beside the wav, and
 ``warm_mel_cache`` featurises every un-cached clip in fixed-shape chunk
-batches first.  Collate is numpy only.  Not ported yet: the ctypes
-``native/`` reader and collate, the prefetch threads, multi-host shards.
+batches first.  Wavs are read and batches collated by the ctypes binding
+of ``native/dataio.cpp`` (``data/native.py``, NumPy when it cannot be
+built); a pool of ``num_workers`` threads assembles batches
+(``data/prefetch.py``); ``shard=(rank, world)`` gives each rank of a
+data-parallel run its disjoint slice of every epoch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import random
+import threading
 from dataclasses import dataclass
 from typing import Iterator, List, Sequence
 
 import numpy as np
+import torch
 
-from ..dsp import TacotronSTFT, featurize_wavs_chunked, load_wav
+from ..dsp import TacotronSTFT, featurize_wavs_chunked
 from ..text import text_to_sequence
+from . import native
+from .prefetch import prefetch_map
+
+
+_streams = threading.local()
+
+
+@contextlib.contextmanager
+def _own_stream(device):
+    """On a card, run the enclosed work on a CUDA stream of the calling
+    thread's own: a worker's featurisation (kernel K2) and its copy back
+    then wait for nothing the training thread has queued."""
+    if device.type != "cuda":
+        yield
+        return
+    stream = getattr(_streams, "stream", None)
+    if stream is None:
+        stream = _streams.stream = torch.cuda.Stream(device)
+    with torch.cuda.stream(stream):
+        yield
 
 
 def load_filepaths_and_text(filename: str, split: str = "|") -> List[List[str]]:
@@ -89,10 +115,10 @@ class TextMelDataset:
         return f"{audiopath}.{self._cache_tag}.{src}.npy"
 
     def _load_audio(self, path: str) -> np.ndarray:
-        audio, sr = load_wav(path)
+        audio, sr = native.load_wav(path, scale=self.hp.max_wav_value)
         if sr != self.hp.sampling_rate:
             raise ValueError(f"{sr} SR doesn't match target {self.hp.sampling_rate} SR")
-        return audio / self.hp.max_wav_value
+        return audio
 
     @staticmethod
     def _save(cache: str, mel: np.ndarray) -> bool:
@@ -116,17 +142,24 @@ class TextMelDataset:
         if cache and os.path.exists(cache):
             return np.load(cache)
         audio = self._load_audio(audiopath)
-        mel = self.stft.mel_spectrogram(audio[None])[0].cpu().numpy().astype(np.float32)
+        with _own_stream(self.stft.device):
+            mel = self.stft.mel_spectrogram(audio[None])[0].cpu().numpy().astype(np.float32)
         if cache:
             self._save(cache, mel)
         return mel
 
-    def warm_mel_cache(self, chunk_frames: int = 128, batch_chunks: int = 64) -> int:
+    def warm_mel_cache(self, chunk_frames: int = 128, batch_chunks: int = 64,
+                       shard: tuple[int, int] = (0, 1)) -> int:
         """Featurise every un-cached wav in fixed-shape chunk batches
-        (``dsp.featurize_wavs_chunked``); returns the number of mels written."""
+        (``dsp.featurize_wavs_chunked``); returns the number of mels written.
+        ``shard=(rank, world)`` takes the rank's slice ``[rank::world]`` of
+        the stable entry list, so the ranks of a data-parallel run featurise
+        a shared corpus once between them."""
         if self.hp.load_mel_from_disk or not self.mel_cache:
             return 0
-        todo = [e[0] for e in self.entries if not os.path.exists(self.mel_cache_path(e[0]))]
+        rank, world = shard
+        todo = [p for p in [e[0] for e in self.entries][rank::world]
+                if not os.path.exists(self.mel_cache_path(p))]
         pad = self.hp.filter_length // 2
         paths, audios = [], []
         for path in todo:
@@ -182,27 +215,6 @@ class TextMelDataset:
         return tokens, self.get_mel(audiopath), spk, emo
 
 
-def collate_text(seqs: Sequence[np.ndarray], s_max: int):
-    """[(S_i,) int32] -> ((B, s_max) zero-padded, lengths)."""
-    lengths = np.asarray([len(s) for s in seqs], np.int32)
-    out = np.zeros((len(seqs), s_max), np.int32)
-    for i, s in enumerate(seqs):
-        out[i, :len(s)] = s
-    return out, lengths
-
-
-def collate_mels(mels: Sequence[np.ndarray], t_max: int):
-    """[(n_mel, T_i)] -> (mel (B, n_mel, t_max), gate (B, t_max), lengths);
-    gate targets are 1 from each item's last real frame on."""
-    lengths = np.asarray([m.shape[1] for m in mels], np.int32)
-    mel = np.zeros((len(mels), mels[0].shape[0], t_max), np.float32)
-    gate = np.zeros((len(mels), t_max), np.float32)
-    for i, m in enumerate(mels):
-        mel[i, :, :m.shape[1]] = m
-        gate[i, m.shape[1] - 1:] = 1.0
-    return mel, gate, lengths
-
-
 def collate(items: Sequence[tuple], n_frames_per_step: int = 1, text_bucket: int = 1,
             mel_bucket: int = 1, fixed_text_len: int | None = None,
             fixed_mel_len: int | None = None) -> Batch:
@@ -213,8 +225,8 @@ def collate(items: Sequence[tuple], n_frames_per_step: int = 1, text_bucket: int
     max_s = fixed_text_len or _round_up(max(len(it[0]) for it in items), text_bucket)
     max_t = fixed_mel_len or _round_up(max(it[1].shape[1] for it in items), mel_bucket)
     max_t = _round_up(max_t, n_frames_per_step)
-    text, input_lengths = collate_text([it[0] for it in items], max_s)
-    mel, gate, output_lengths = collate_mels([it[1] for it in items], max_t)
+    text, input_lengths = native.collate_text([it[0] for it in items], max_s)
+    mel, gate, output_lengths = native.collate_mels([it[1] for it in items], max_t)
     return Batch(text, input_lengths, mel, gate, output_lengths,
                  np.stack([it[2] for it in items]).astype(np.float32),
                  np.stack([it[3] for it in items]).astype(np.float32))
@@ -222,22 +234,29 @@ def collate(items: Sequence[tuple], n_frames_per_step: int = 1, text_bucket: int
 
 class DataLoader:
     """Deterministic batch iterator: per-epoch shuffle, ``drop_last``,
-    length-pooled batches (``sort_by_length``), bucketed padding.  One
-    process only: ``shard`` must be (0, 1)."""
+    length-pooled batches (``sort_by_length``), bucketed padding, batches
+    assembled by ``num_workers`` threads.  With ``shard=(rank, world)``
+    each rank takes the slice ``[rank::world]`` of every epoch's
+    permutation, and every rank yields the same number of batches
+    (``len(dataset) // world // batch_size``), so no rank waits in a
+    collective for a step the others never take."""
 
     def __init__(self, dataset: TextMelDataset, batch_size: int, hp, shuffle: bool = True,
                  drop_last: bool = True, shard: tuple[int, int] = (0, 1),
-                 seed: int | None = None, fixed_lengths: tuple[int, int] | None = None):
-        if tuple(shard) != (0, 1):
-            raise NotImplementedError("multi-host sharding is not ported yet")
+                 seed: int | None = None, fixed_lengths: tuple[int, int] | None = None,
+                 num_workers: int | None = None):
         self.ds, self.batch_size, self.hp = dataset, batch_size, hp
         self.shuffle, self.drop_last = shuffle, drop_last
+        self.rank, self.world = shard
+        if not 0 <= self.rank < self.world:
+            raise ValueError(f"shard {shard} is not (rank, world) with 0 <= rank < world")
         self.seed = hp.seed if seed is None else seed
         self.fixed_lengths = fixed_lengths
+        self.num_workers = hp.num_workers if num_workers is None else num_workers
         self._warmed = False
 
     def __len__(self) -> int:
-        n = len(self.ds)
+        n = len(self.ds) // self.world
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _make_batch(self, chunk) -> Batch:
@@ -249,17 +268,20 @@ class DataLoader:
 
     def epoch(self, epoch_idx: int = 0) -> Iterator[Batch]:
         if not self._warmed:
-            self.ds.warm_mel_cache()
+            self.ds.warm_mel_cache(shard=(self.rank, self.world))
             self._warmed = True
         idx = np.arange(len(self.ds))
         rng = np.random.RandomState(self.seed + epoch_idx)
         if self.shuffle:
             rng.shuffle(idx)
+        idx = idx[self.rank::self.world]
         if self.drop_last:
+            # the rank-invariant count: low ranks hold one more item when
+            # len % world != 0, and it is dropped here, before pooling
             idx = idx[:len(self) * self.batch_size]
         if getattr(self.hp, "sort_by_length", False):
-            # within pools of 8 batches, sort by mel length so each batch
-            # pads to near its own maximum
+            # within pools of 8 batches of this rank's slice, sort by mel
+            # length so each batch pads to near its own maximum
             lens = self.ds.mel_lengths()
             pool = self.batch_size * 8
             parts = [p[np.argsort(lens[p], kind="stable")]
@@ -269,5 +291,8 @@ class DataLoader:
         chunks = [c for c in chunks if len(c)]
         if getattr(self.hp, "sort_by_length", False) and self.shuffle:
             rng.shuffle(chunks)
-        for chunk in chunks:
-            yield self._make_batch(chunk)
+        if self.num_workers > 1 and len(chunks) > 1:
+            yield from prefetch_map(self._make_batch, chunks, workers=self.num_workers)
+        else:
+            for chunk in chunks:
+                yield self._make_batch(chunk)

@@ -11,6 +11,7 @@ DFT-basis product on host-padded rows.
 
 from __future__ import annotations
 
+import threading
 from functools import lru_cache
 from typing import NamedTuple
 
@@ -71,9 +72,18 @@ def _tables(n_fft, win_length, n_mels, sampling_rate, fmin, fmax) -> Tables:
 
 
 @lru_cache(maxsize=8)
-def device_tables(device: str, *key) -> Tables:
-    """``_tables`` as tensors on ``device`` (cached)."""
+def _device_tables(device: str, *key) -> Tables:
     return Tables(*(torch.from_numpy(t).to(device) for t in _tables(*key)))
+
+
+_tables_lock = threading.Lock()
+
+
+def device_tables(device: str, *key) -> Tables:
+    """``_tables`` as tensors on ``device`` (cached; built once when several
+    threads ask at once)."""
+    with _tables_lock:
+        return _device_tables(device, *key)
 
 
 def frame_signal(y, n_fft: int, hop_length: int):

@@ -20,6 +20,7 @@ from torch.autograd.function import once_differentiable
 
 from ..ops import teacher_fwd as tf
 from ..ops.layers import linear
+from ..parallel import mesh
 from .decoder import group_frames, ungroup_mel
 
 _F32_MIN = float(np.finfo(np.float32).min)
@@ -141,10 +142,13 @@ def scan_params(dec) -> dict:
 
 def dropout_masks(T, B, H, keep, dtype, generator, device):
     """Pre-scaled (bernoulli(keep) / keep) dropout mask in ``dtype``, drawn
-    in bulk from ``generator``."""
+    in bulk from ``generator`` (batch axis 1; at the global batch's shape
+    inside a data-parallel scope).  ``keep`` is rounded to ``dtype`` on the
+    device: a tensor made from a host value would be a blocking copy."""
     dev = device if generator is None else generator.device
-    draw = torch.rand((T, B, H), generator=generator, device=dev) < keep
-    return draw.to(device=device, dtype=dtype) / torch.tensor(keep, dtype=dtype, device=device)
+    draw = mesh.rand_rows((T, B, H), 1, generator, dev) < keep
+    return draw.to(device=device, dtype=dtype) / torch.full((), keep, dtype=dtype,
+                                                            device=device)
 
 
 def teacher_forced(dec, memory, mels, memory_lengths, hp, *, train: bool,

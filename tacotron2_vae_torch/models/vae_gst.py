@@ -15,6 +15,7 @@ from torch import nn
 
 from ..ops.layers import batchnorm, conv2d, linear
 from ..ops.rnn import gru_scan
+from ..parallel import mesh
 
 
 def conv_out_len(L: int, n_convs: int, kernel=3, stride=2, pad=1) -> int:
@@ -136,7 +137,7 @@ class VAE_GST(nn.Module):
         z = mu
         if train:
             dev = mu.device if generator is None else generator.device
-            eps = torch.randn(mu.shape, generator=generator, device=dev).to(mu.device)
+            eps = mesh.rand_rows(mu.shape, 0, generator, dev, normal=True).to(mu.device)
             z = mu + eps * torch.exp(0.5 * logvar)
         style = linear(z, self.fc3.weight, self.fc3.bias)
         return style, mu, logvar, z

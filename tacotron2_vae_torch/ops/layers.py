@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh
+
 
 def cast(x: torch.Tensor, dtype) -> torch.Tensor:
     """Round to the compute dtype and return fp32 (the operand of an fp32-
@@ -94,16 +96,14 @@ def batchnorm(x, bn: nn.BatchNorm1d, eps=None, train: bool = False,
     ``layers.batchnorm(train=True)``) normalises with the batch's one-pass
     statistics ``E[x]`` and ``max(E[x^2] - E[x]^2, 0)`` and updates the
     module's running buffers in place (momentum 0.1, unbiased variance);
-    ``nn.BatchNorm``'s own forward is not used, its variance differs."""
+    ``nn.BatchNorm``'s own forward is not used, its variance differs.
+    Inside a data-parallel scope the statistics are those of the global
+    batch (``parallel.mesh.batch_stats``)."""
     eps = bn.eps if eps is None else eps
     xf = x.float()
     if train:
-        axes = tuple(range(x.ndim - 1))
-        mean = xf.mean(axes)
-        var = torch.clamp((xf * xf).mean(axes) - mean * mean, min=0.0)
+        mean, var, unbiased = mesh.batch_stats(xf, tuple(range(x.ndim - 1)))
         with torch.no_grad():
-            count = x.numel() // x.shape[-1]
-            unbiased = var * (count / max(count - 1, 1))
             bn.running_mean.mul_(1 - momentum).add_(momentum * mean)
             bn.running_var.mul_(1 - momentum).add_(momentum * unbiased)
     else:
@@ -113,13 +113,15 @@ def batchnorm(x, bn: nn.BatchNorm1d, eps=None, train: bool = False,
     return y.to(x.dtype)
 
 
-def dropout(x, rate: float, generator=None, enabled: bool = True):
-    """Inverted dropout with an explicit generator (off when not enabled)."""
+def dropout(x, rate: float, generator=None, enabled: bool = True, batch_dim: int = 0):
+    """Inverted dropout with an explicit generator (off when not enabled);
+    inside a data-parallel scope the mask is drawn at the global batch's
+    shape along ``batch_dim`` and cut to this rank's rows."""
     if not enabled or rate == 0.0:
         return x
     keep = 1.0 - rate
     dev = x.device if generator is None else generator.device
-    mask = (torch.rand(x.shape, generator=generator, device=dev) < keep).to(x.device)
+    mask = (mesh.rand_rows(x.shape, batch_dim, generator, dev) < keep).to(x.device)
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

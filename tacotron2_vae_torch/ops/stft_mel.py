@@ -5,13 +5,15 @@ n//hop + 1) log-mel: reflect pad n_fft/2, Hann-windowed 1024/256 frames,
 real FFT in full fp32, magnitude, slaney mel filterbank, log(max(x, 1e-5)).
 On a CUDA tensor it launches the kernel; on a CPU tensor it runs
 ``mel_spectrogram_plain`` (the DFT-basis product of the TPU kernel).  It
-counts its kernel launches in ``mel_spectrogram_fused.launches``.
+counts its kernel launches in ``mel_spectrogram_fused.launches``.  It is
+safe to call from several threads (the loader's workers); it keeps no
+output buffer between calls.
 """
 
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
+import threading
 
 import torch
 
@@ -38,14 +40,24 @@ def mel_spectrogram_plain(wav, n_fft=1024, hop=256, win_length=1024, n_mels=80,
     return torch.log(torch.clamp(mel, min=1e-5)).t()[None]
 
 
-@lru_cache(maxsize=None)
+# The loader's worker threads call the wrapper concurrently: the resolved
+# kernel and the launch counter are guarded by one lock.
+_lock = threading.Lock()
+_fn = None
+
+
 def _kernel():
     """``t2v_stft_mel`` with its C signature, resolved once."""
-    fn = _build.load("stft_mel").t2v_stft_mel
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
-                   + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    return fn
+    global _fn
+    with _lock:
+        if _fn is None:
+            fn = _build.load("stft_mel").t2v_stft_mel
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                           + [ctypes.c_int] + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                           + [ctypes.c_void_p])
+            _fn = fn
+        return _fn
 
 
 def mel_spectrogram_fused(wav, n_fft=1024, hop=256, win_length=1024, n_mels=80,
@@ -74,7 +86,8 @@ def mel_spectrogram_fused(wav, n_fft=1024, hop=256, win_length=1024, n_mels=80,
                     out.data_ptr(), n_fft, hop, n_mels,
                     torch.cuda.current_stream(wav.device).cuda_stream)
     _build.check(err, "t2v_stft_mel")
-    mel_spectrogram_fused.launches += 1
+    with _lock:
+        mel_spectrogram_fused.launches += 1
     return out[None]
 
 

@@ -262,6 +262,7 @@ CLUSTER = 4     # attention CTAs per batch row: kNC
 Q_CHUNK = 64    # rows of H per query-product partial: kQChunk
 TILE_K = 64     # reduction tile of the bf16 wgmma products: kTileK
 USE_GRAPH = True  # replay each call's step loop from a CUDA graph (False: the profiler's view)
+GRAPHS = 4        # sets of sizes whose graph is kept, per direction (kGraphs)
 
 
 def cdiv(a: int, b: int) -> int:
@@ -365,15 +366,25 @@ def _run_bwd(w, memory, pmem, masks, dys, ys, resids, w_cum_prev):
     return dg_att, dg_dec, dpn, dctx, dloc, dv, dwq, dwld, dpmem
 
 
-def graph_captures() -> dict:
-    """Step-loop CUDA graphs captured so far by K3 and K4 in this process
-    (a call whose arguments match one of the last four replays its graph)."""
+def _graph_counter(what: str) -> dict:
     out = {}
     for key, lib in (("K3", "teacher_fwd"), ("K4", "teacher_bwd")):
-        fn = getattr(_build.load(lib), f"t2v_{lib}_graph_captures")
+        fn = getattr(_build.load(lib), f"t2v_{lib}_graph_{what}")
         fn.restype, fn.argtypes = ctypes.c_int, []
         out[key] = fn()
     return out
+
+
+def graph_captures() -> dict:
+    """Step-loop CUDA graphs instantiated so far by K3 and K4 in this
+    process: one per set of sizes not among the last ``GRAPHS``."""
+    return _graph_counter("captures")
+
+
+def graph_updates() -> dict:
+    """Calls of K3 and K4 so far at known sizes with new pointers, whose
+    graph was captured again and updated in place (no instantiation)."""
+    return _graph_counter("updates")
 
 
 def teacher_fwd(w, prenet_seq, memory, pmem, add_mask, masks=None):

@@ -4,7 +4,9 @@ The payload of the JAX package's ``training/checkpoint.py`` (reference
 train.py:92-119): iteration, learning rate, the model's ``state_dict``
 (parameters and batchnorm running statistics, reference names) and the
 optimizer state, at ``output_dir/checkpoint_{iteration}``.  Orbax
-directories written by the JAX trainer need JAX and are not read.
+directories written by the JAX trainer need JAX and are not read.  In a
+data-parallel run rank 0 writes and every rank then meets at a barrier
+(``training.train``); every rank loads on resume, onto its own card.
 """
 
 from __future__ import annotations

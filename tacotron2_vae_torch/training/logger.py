@@ -1,8 +1,10 @@
 """Training logs as CSV files (the JAX ``Tacotron2Logger``'s sidecars).
 
 ``metrics.csv`` holds one row per training iteration and
-``val_metrics.csv`` one per validation, with the JAX package's columns.
-TensorBoard scalars, histograms and plots are not ported yet.
+``val_metrics.csv`` one per validation, with the JAX package's columns;
+``duration`` is the wall time per step between two metric fetches.  In a
+data-parallel run only rank 0 keeps a logger.  The JAX logger's TensorBoard
+scalars, histograms and alignment plots are queued in ROADMAP.md A.
 """
 
 from __future__ import annotations

@@ -7,18 +7,22 @@ summed (not meaned) over batch and latent dims, and three anneal schedules.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
-def kl_anneal_weight(anneal_function: str, lag, step, k, x0, upper) -> torch.Tensor:
-    """KL weight schedule (loss_function.py:15-24), in float32."""
-    step = torch.tensor(float(step), dtype=torch.float32)
+def kl_anneal_weight(anneal_function: str, lag, step, k, x0, upper) -> float:
+    """KL weight schedule (loss_function.py:15-24), in float32 on the host:
+    the step count is a host integer, so the weight never needs a copy to
+    or from the card."""
+    f32 = np.float32
+    step = f32(step)
     if anneal_function == "logistic":
-        return upper / (upper + torch.exp(-k * (step - x0)))
+        return float(f32(upper) / (f32(upper) + np.exp(f32(-k) * (step - f32(x0)))))
     if anneal_function == "linear":
-        return torch.where(step > lag, torch.clamp(step / x0, max=upper), 0.0)
+        return float(min(f32(upper), step / f32(x0))) if step > lag else 0.0
     if anneal_function == "constant":
-        return torch.tensor(0.001, dtype=torch.float32)
+        return float(f32(0.001))
     raise ValueError(f"unknown anneal_function {anneal_function!r}")
 
 
@@ -29,8 +33,8 @@ def bce_with_logits(logits, targets):
 
 
 def tacotron2_vae_loss(outputs, mel_target, gate_target, step, hp):
-    """(total, aux) with aux = recon_loss, mel_loss, gate_loss, kl_loss,
-    kl_weight.  With r > 1 frames per step each step's gate logit is held
+    """(total, aux) with aux = recon_loss, mel_loss, gate_loss, kl_loss
+    (tensors) and kl_weight (a float).  With r > 1 frames per step each step's gate logit is held
     against the target at its group's last frame."""
     mel_loss = (torch.mean((outputs.mel_outputs - mel_target) ** 2)
                 + torch.mean((outputs.mel_outputs_postnet - mel_target) ** 2))
@@ -41,7 +45,7 @@ def tacotron2_vae_loss(outputs, mel_target, gate_target, step, hp):
     gate_loss = bce_with_logits(gate_out.reshape(-1), gate_target.reshape(-1))
     kl_loss = -0.5 * torch.sum(1.0 + outputs.logvar - outputs.mu ** 2 - torch.exp(outputs.logvar))
     kl_weight = kl_anneal_weight(hp.anneal_function, hp.anneal_lag, step, hp.anneal_k,
-                                 hp.anneal_x0, hp.anneal_upper).to(mel_loss.device)
+                                 hp.anneal_x0, hp.anneal_upper)
     recon_loss = mel_loss + gate_loss
     aux = {"recon_loss": recon_loss, "mel_loss": mel_loss, "gate_loss": gate_loss,
            "kl_loss": kl_loss, "kl_weight": kl_weight}

@@ -4,25 +4,35 @@ The optimizer follows the reference's torch Adam + clip_grad_norm loop
 (train.py:171-175, 204-232) as the JAX package chains it: global-norm clip
 to ``grad_clip_thresh`` (optax's ``thresh / max(norm, thresh)``; PyTorch's
 ``clip_grad_norm_`` adds 1e-6 and is not used) -> L2 weight decay added to
-the gradient -> Adam (0.9, 0.999, 1e-8) -> step of -lr, i.e.
-``torch.optim.Adam(weight_decay=...)`` after the hand-written clip.  A
-parameter the forward does not use (the speaker and emotion embeddings)
-gets a zero gradient, so weight decay moves it as optax moves it.
+the gradient -> Adam (0.9, 0.999, 1e-8) -> step of -lr.  It is
+``torch.optim.Adam(fused=True)``, whose kernel divides the gradients by a
+device scalar (``grad_scale``: ``max(norm, thresh) / thresh``, the clip)
+and leaves every parameter, moment and step count untouched when a device
+flag (``found_inf``) is set.  A parameter the forward does not use (the
+speaker and emotion embeddings) gets a zero gradient, so weight decay moves
+it as optax moves it.
 
-A non-finite loss or gradient norm skips the update: the parameters, Adam's
-moments and step count, and the batchnorm running statistics (snapshotted
-before the forward) are left as they were; the iteration count still
-advances.  ``fp16_run`` (the dynamic loss scaler) is not ported yet.
+The step never waits for the card: its metrics are device tensors, and the
+clip and the non-finite skip are decided on the device, as JAX's
+``jnp.where(ok, new, old)``.  A non-finite loss or gradient norm leaves the
+parameters, Adam's moments and step count, and the batchnorm running
+statistics (snapshotted before the forward) as they were; the iteration
+count still advances.  In a data-parallel run (``parallel.mesh``) the step
+computes what one process computes on the global batch, and the skip is
+decided from the all-reduced loss and norm, alike on every rank.
+``fp16_run`` (the dynamic loss scaler) is not ported.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..models.tacotron2 import Tacotron2, init_weights
+from ..parallel import mesh
 from .loss import tacotron2_vae_loss
 
 AUX_KEYS = ("recon_loss", "mel_loss", "gate_loss", "kl_loss")
@@ -51,7 +61,7 @@ class TrainState:
 def make_optimizer(model, hp, learning_rate=None) -> torch.optim.Adam:
     lr = hp.learning_rate if learning_rate is None else learning_rate
     return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=hp.weight_decay)
+                            weight_decay=hp.weight_decay, fused=True)
 
 
 def create_train_state(hp, device=None, learning_rate=None, seed=None) -> TrainState:
@@ -84,73 +94,112 @@ def _split(batch: dict, accum: int) -> list[dict]:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tensors))
+    """The global L2 norm of ``tensors`` as a device scalar (float32)."""
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def optimizer_update(ts: TrainState, hp, loss: float) -> tuple[float, bool]:
+def optimizer_update(ts: TrainState, hp, loss) -> tuple[torch.Tensor, torch.Tensor]:
     """Clip the gradients to ``grad_clip_thresh`` by their global norm and
-    take one Adam step, unless the loss or the norm is not finite.
-    Parameters without a gradient get a zero one.  Returns (norm, stepped)."""
+    take one Adam step, unless the loss (a device scalar or a float) or the
+    norm is not finite.  Parameters without a gradient get a zero one.
+    Returns (norm, stepped) as device scalars; nothing waits for the card.
+    The fused kernel reads a gradient as laid out like its parameter, so a
+    gradient with other strides is made contiguous first."""
     params = list(ts.model.parameters())
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    grads = [p.grad for p in params]
-    grad_norm = float(global_norm(grads))
-    ok = bool(np.isfinite(loss) and np.isfinite(grad_norm))
-    if ok:
-        torch._foreach_mul_(grads, hp.grad_clip_thresh / max(grad_norm, hp.grad_clip_thresh))
-        ts.optimizer.step()
-    return grad_norm, ok
+        elif not p.grad.is_contiguous():
+            p.grad = p.grad.contiguous()
+    norm = global_norm([p.grad for p in params])
+    ok = torch.isfinite(norm)
+    if isinstance(loss, torch.Tensor):
+        ok = ok & torch.isfinite(loss)
+    elif not math.isfinite(loss):
+        ok = torch.zeros_like(ok)
+    opt = ts.optimizer
+    opt.grad_scale = torch.clamp(norm, min=hp.grad_clip_thresh) / hp.grad_clip_thresh
+    opt.found_inf = (~ok).float()
+    opt.step()
+    return norm, ok
 
 
-def make_train_step(hp):
-    """Returns ``train_step(ts, batch, generator) -> metrics`` (floats),
-    which updates ``ts`` in place.
+def _float_buffers(model) -> list[torch.Tensor]:
+    return [b for b in model.buffers() if b.is_floating_point()]
+
+
+def _restore_unless(ok, buffers: list[torch.Tensor], saved: torch.Tensor) -> None:
+    """``buffers`` keep their values where ``ok``, else take ``saved`` (a
+    flat snapshot of them), in three kernels."""
+    from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+    if buffers:
+        kept = torch.where(ok, _flatten_dense_tensors(buffers), saved)
+        torch._foreach_copy_(buffers, _unflatten_dense_tensors(kept, buffers))
+
+
+def make_train_step(hp, dp: mesh.DataParallel | None = None):
+    """Returns ``train_step(ts, batch, generator) -> metrics``, which
+    updates ``ts`` in place.  The metrics are device scalars (``loss``,
+    ``grad_norm``, the ``AUX_KEYS`` and ``updated``) and ``kl_weight`` (a
+    float); reading them is the caller's choice and the step never waits.
 
     With ``grad_accum_steps = a > 1`` the batch splits into ``a``
     micro-batches under one update whose gradient matches the big batch:
     mel and gate terms are means, while the KL is a sum over the batch, so
     each micro-batch's KL is weighted by ``a`` before the 1/a average;
-    batchnorm running statistics chain through the micro-batches."""
+    batchnorm running statistics chain through the micro-batches.  With
+    ``dp`` (world ``w``) the same rule spans the ranks: each back-propagates
+    ``recon + kl_weight * w * a * kl`` of its rows, the gradients and the
+    metrics are summed over the ranks in one all-reduce, and the gradient
+    is divided by ``w * a``; the metrics are those of the global batch."""
     if hp.fp16_run:
         raise NotImplementedError("fp16_run (dynamic loss scaling) is not ported yet")
     accum = max(1, int(getattr(hp, "grad_accum_steps", 1)))
+    world = dp.world if dp is not None else 1
 
     def train_step(ts: TrainState, batch, generator=None):
         model, opt = ts.model, ts.optimizer
         if not isinstance(batch, dict):
             batch = batch_to_device(batch, ts.device)
-        buffers = [b.detach().clone() for b in model.buffers()]
+        buffers = _float_buffers(model)
+        saved = torch.cat([b.reshape(-1) for b in buffers]) if buffers else None
         opt.zero_grad(set_to_none=True)
-        if accum == 1:
-            out = model(batch, train=True, generator=generator)
-            total, aux = tacotron2_vae_loss(out, batch["mel"], batch["gate"], ts.step, hp)
-            total.backward()
-        else:
-            sums = {k: 0.0 for k in AUX_KEYS}
-            for micro in _split(batch, accum):
+        sums = None
+        with mesh.scope(dp):
+            for micro in (_split(batch, accum) if accum > 1 else (batch,)):
                 out = model(micro, train=True, generator=generator)
-                _, aux_m = tacotron2_vae_loss(out, micro["mel"], micro["gate"], ts.step, hp)
-                (aux_m["recon_loss"] + aux_m["kl_weight"] * accum * aux_m["kl_loss"]).backward()
-                for k in AUX_KEYS:
-                    sums[k] = sums[k] + aux_m[k].detach()
-            for p in model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(accum)
-            aux = {k: sums[k] / accum for k in ("recon_loss", "mel_loss", "gate_loss")}
-            aux["kl_loss"], aux["kl_weight"] = sums["kl_loss"], aux_m["kl_weight"]
-            total = aux["recon_loss"] + aux["kl_weight"] * aux["kl_loss"]
-        loss = float(total.detach())
-        grad_norm, ok = optimizer_update(ts, hp, loss)
-        if not ok:
-            with torch.no_grad():
-                for b, saved in zip(model.buffers(), buffers):
-                    b.copy_(saved)
+                _, aux = tacotron2_vae_loss(out, micro["mel"], micro["gate"], ts.step, hp)
+                kl_weight = aux["kl_weight"]
+                (aux["recon_loss"] + kl_weight * (accum * world) * aux["kl_loss"]).backward()
+                part = torch.stack([aux[k].detach() for k in AUX_KEYS])
+                sums = part if sums is None else sums + part
+        params = list(model.parameters())
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        if world > 1:
+            # the gradients and the metric sums in one flat all-reduce
+            mesh.all_reduce_flat(grads + [sums])
+            torch._foreach_div_(grads, world * accum)
+        elif accum > 1:
+            torch._foreach_div_(grads, accum)
+        # recon, mel and gate are means of the ranks' and micro-batches'
+        # means; the KL is a sum over the batch
+        n = world * accum
+        aux = {k: sums[i] / n if n > 1 and k != "kl_loss" else sums[i]
+               for i, k in enumerate(AUX_KEYS)}
+        total = aux["recon_loss"] + kl_weight * aux["kl_loss"]
+        grad_norm, ok = optimizer_update(ts, hp, total)
+        if saved is not None:
+            _restore_unless(ok, buffers, saved)
         opt.zero_grad(set_to_none=True)
         ts.step += 1
-        metrics = {"loss": loss, "grad_norm": grad_norm, "updated": ok}
-        metrics.update({k: float(torch.as_tensor(v).detach()) for k, v in aux.items()})
+        metrics = {"loss": total.detach(), "grad_norm": grad_norm, "updated": ok,
+                   "kl_weight": kl_weight}
+        metrics.update(aux)
         return metrics
 
     return train_step

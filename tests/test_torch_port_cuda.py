@@ -26,7 +26,9 @@ recurrence, by ``chip_smoke.k34_check`` and its limits ``K34_TOL``, at
 widths whose LSTM input sizes (P+E+H = 176, 2H+E = 212) are not multiples
 of the 64-deep wgmma tiles and whose 4H = 288 is not a multiple of the
 64-unit blocks, with B from 1 to the 64-row tile and S split unevenly over
-the attention cluster; two K4 calls bit for bit alike; K5 exactly
+the attention cluster; two K4 calls bit for bit alike; K3/K4 calls on new
+tensors at cached sizes update their graph in place and match the same
+calls launched kernel by kernel bit for bit; K5 exactly
 (a copy plus one): one flat pass and one grid row per input row, a base
 off 16-byte alignment, row strides and row lengths that are not multiples
 of 4 (scalar heads and tails), B = 1, more blocks than one wave; K6 atol
@@ -211,6 +213,43 @@ def test_recurrence_backward_kernel_is_deterministic_on_card(cuda_device, dtype)
     second = tf.teacher_bwd(*args)
     torch.cuda.synchronize()
     for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_recurrence_graph_update_reads_new_pointers_on_card(cuda_device, dtype, monkeypatch):
+    """A K3/K4 call at sizes seen before but on new tensors updates the
+    cached graph in place (no instantiation), and the updated graph reads
+    and writes the new tensors: its outputs are bit-equal to the same call
+    launched kernel by kernel."""
+    from chip_smoke import k34_inputs
+    from tacotron2_vae_torch.ops import teacher_fwd as tf
+
+    hp = create_hparams(ODD)
+    model = init_weights(Tacotron2(hp), torch.Generator().manual_seed(0))
+    dec = model.to(cuda_device).eval().requires_grad_(False).decoder
+    w, pn, mem, pm, add, masks, dys = k34_inputs(dec, 64, 70, 6, None, getattr(torch, dtype),
+                                                 True, cuda_device)
+
+    def run(pn, mem, dys):
+        ys, res = tf.teacher_fwd(w, pn, mem, pm, add, masks)
+        w_cum_prev = torch.cat([torch.zeros_like(ys[2][:1]), torch.cumsum(ys[2], 0)[:-1]])
+        grads = tf.teacher_bwd(w, mem, pm, masks, dys, ys, res, w_cum_prev.contiguous())
+        return [x.clone() for x in (*ys, *res, *grads)]
+
+    first = run(pn, mem, dys)
+    captures, updates = tf.graph_captures(), tf.graph_updates()
+    new = (pn.flip(1).contiguous(), (0.5 * mem).contiguous(),
+           [d.flip(1).contiguous() for d in dys])
+    second = run(*new)
+    assert tf.graph_captures() == captures
+    assert all(tf.graph_updates()[k] == updates[k] + 1 for k in ("K3", "K4"))
+    monkeypatch.setattr(tf, "USE_GRAPH", False)
+    streamed = run(*new)
+    torch.cuda.synchronize()
+    assert not torch.equal(first[0], second[0])
+    for a, b in zip(second, streamed):
         assert torch.equal(a, b)
 
 

@@ -16,6 +16,7 @@ copies of the corpus, so neither reads the other's mel cache.
 """
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -109,3 +110,119 @@ def test_max_lengths_match_jax(tmp_path, source):
     want = jds.TextMelDataset(hpj.training_files, hpj).max_lengths()
     assert got == want
     assert want[1] == int(16000 * max(SECONDS)) // 256 + 1
+
+
+# --- shards, the worker pool and the sharded mel cache --------------------------
+#
+# A 13-clip corpus of random-length mels (.npy, so both sides read the same
+# values): 13 % 2 and 13 % 3 are 1, so the low ranks' strided slices hold one
+# more item, which the rank-invariant batch count drops.
+
+
+def _npy_corpus(root, n=13, seed=0):
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    path = os.path.join(root, "train.txt")
+    with open(path, "w", encoding="utf-8") as f:
+        for i in range(n):
+            mel = os.path.join(root, f"m{i}.npy")
+            np.save(mel, (rng.randn(80, int(rng.randint(20, 140))) - 4).astype(np.float32))
+            f.write(f"{mel}|{TEXTS[i % len(TEXTS)]}|0|{i % 4}\n")
+    return path
+
+
+def _shard_hparams(flist, sort, batch_size=2):
+    return (f"training_files='{flist}',validation_files='{flist}',batch_size={batch_size},"
+            f"load_mel_from_disk=True,sort_by_length={sort},text_bucket_size=8,"
+            f"mel_bucket_size=16")
+
+
+@pytest.mark.parametrize("sort", [False, True], ids=["plain", "sort_by_length"])
+@pytest.mark.parametrize("world", [2, 3])
+def test_sharded_loaders_match_jax(tmp_path, world, sort):
+    flist = _npy_corpus(str(tmp_path))
+    hp = create_hparams(_shard_hparams(flist, sort))
+    hpj = jax_hparams(_shard_hparams(flist, sort))
+    fixed = (32, 144)
+    seen = []
+    for rank in range(world):
+        got = ds.DataLoader(ds.TextMelDataset(flist, hp, device="cpu"), 2, hp,
+                            shard=(rank, world), fixed_lengths=fixed)
+        want = jds.DataLoader(jds.TextMelDataset(flist, hpj), 2, hpj,
+                              shard=(rank, world), fixed_lengths=fixed)
+        assert len(got) == len(want) == 13 // world // 2
+        for epoch in (0, 1):
+            g_batches, w_batches = _batches(got, epoch), _batches(want, epoch)
+            assert len(g_batches) == len(w_batches) == len(want)
+            for g, w in zip(g_batches, w_batches):
+                assert g.keys() == w.keys()
+                for k in w:
+                    np.testing.assert_array_equal(g[k], w[k], err_msg=f"rank {rank} {k}")
+            if epoch == 0:
+                seen.append({b["mel"][i].tobytes() for b in g_batches for i in range(2)})
+    for a in range(world):  # the ranks' items are disjoint
+        for b in range(a + 1, world):
+            assert not seen[a] & seen[b]
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_sharded_prepare_dataloaders_match_jax(tmp_path, world):
+    flist = _npy_corpus(str(tmp_path))
+    spec = _shard_hparams(flist, False, batch_size=2 * world)
+    hp, hpj = create_hparams(spec), jax_hparams(spec)
+    for rank in range(world):
+        got, _ = tr.prepare_dataloaders(hp, "cpu", shard=(rank, world))
+        want, _ = jtr.prepare_dataloaders(hpj, shard=(rank, world))
+        assert got.batch_size == want.batch_size == 2
+        assert got.fixed_lengths == want.fixed_lengths is not None
+        g_batches, w_batches = _batches(got, 0), _batches(want, 0)
+        assert len(g_batches) == len(w_batches) > 0
+        for g, w in zip(g_batches, w_batches):
+            for k in w:
+                np.testing.assert_array_equal(g[k], w[k], err_msg=f"rank {rank} {k}")
+
+
+@pytest.mark.parametrize("workers", [4, 32])
+def test_worker_pool_epochs_equal_serial_epochs(tmp_path, workers):
+    """Batches from a pool of threads (32: more than the cores, switching
+    threads every microsecond) equal the serial ones, in order."""
+    flist = _npy_corpus(str(tmp_path))
+    hp = create_hparams(_shard_hparams(flist, True))
+    dataset = ds.TextMelDataset(flist, hp, device="cpu")
+    serial = ds.DataLoader(dataset, 2, hp, num_workers=1)
+    pooled = ds.DataLoader(dataset, 2, hp, num_workers=workers)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for epoch in (0, 3):
+            a, b = _batches(serial, epoch), _batches(pooled, epoch)
+            assert len(a) == len(b) == 6
+            for x, y in zip(a, b):
+                for k in x:
+                    np.testing.assert_array_equal(x[k], y[k], err_msg=k)
+    finally:
+        sys.setswitchinterval(interval)
+
+
+def test_sharded_mel_cache_is_disjoint_and_complete(tmp_path):
+    paths = _write_corpus(str(tmp_path), "wav")
+    hp = create_hparams(f"training_files='{paths['train']}',validation_files='{paths['val']}'")
+    written = []
+    for rank in range(3):
+        dataset = ds.TextMelDataset(paths["train"], hp, device="cpu")
+        before = {e[0] for e in dataset.entries if os.path.exists(dataset.mel_cache_path(e[0]))}
+        assert dataset.warm_mel_cache(shard=(rank, 3)) == 2
+        after = {e[0] for e in dataset.entries if os.path.exists(dataset.mel_cache_path(e[0]))}
+        written.append(after - before)
+        assert written[-1] == {e[0] for e in dataset.entries[rank::3]}
+    assert set().union(*written) == {e[0] for e in dataset.entries}
+    assert sum(len(w) for w in written) == len(dataset.entries)
+
+
+def test_indivisible_batch_is_rejected(tmp_path):
+    flist = _npy_corpus(str(tmp_path))
+    hp = create_hparams(_shard_hparams(flist, False, batch_size=3))
+    with pytest.raises(ValueError, match="not divisible"):
+        tr.prepare_dataloaders(hp, "cpu", shard=(0, 2))
+    with pytest.raises(ValueError, match="rank"):
+        ds.DataLoader(ds.TextMelDataset(flist, hp, device="cpu"), 2, hp, shard=(2, 2))

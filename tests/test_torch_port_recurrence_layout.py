@@ -26,7 +26,8 @@ def _header_constants():
 
 
 @pytest.mark.parametrize("py_name,c_name", [("SPLIT", "kSplit"), ("CLUSTER", "kNC"),
-                                            ("Q_CHUNK", "kQChunk"), ("TILE_K", "kTileK")])
+                                            ("Q_CHUNK", "kQChunk"), ("TILE_K", "kTileK"),
+                                            ("GRAPHS", "kGraphs")])
 def test_python_constants_match_the_kernel_header(py_name, c_name):
     assert getattr(tf, py_name) == _header_constants()[c_name]
 

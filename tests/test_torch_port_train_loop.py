@@ -13,7 +13,9 @@
 - one optimizer update from the same gradients (clip -> weight decay ->
   Adam -> -lr) matches optax's chain of the JAX package, two steps so
   Adam's moments take part: atol 1e-6;
-- importing the port, training and data modules included, imports no JAX.
+- importing the port, training and data modules included, imports no JAX:
+  also the native binding, the prefetch pipeline, ``parallel/``, ``utils/``
+  and the data-parallel dryrun tool.
 """
 
 import os
@@ -168,7 +170,11 @@ def test_import_leaves_jax_out_with_training_modules():
         "for m in mods: importlib.import_module(m)\n"
         "need = {'tacotron2_vae_torch.training.train', 'tacotron2_vae_torch.training.train_state',\n"
         "        'tacotron2_vae_torch.data.dataset', 'tacotron2_vae_torch.models.decoder_bptt',\n"
-        "        'tacotron2_vae_torch.ops.teacher_fwd', 'tacotron2_vae_torch.profile_train'}\n"
+        "        'tacotron2_vae_torch.ops.teacher_fwd', 'tacotron2_vae_torch.profile_train',\n"
+        "        'tacotron2_vae_torch.data.native', 'tacotron2_vae_torch.data.prefetch',\n"
+        "        'tacotron2_vae_torch.parallel', 'tacotron2_vae_torch.parallel.mesh',\n"
+        "        'tacotron2_vae_torch.utils', 'tacotron2_vae_torch.utils.profiling',\n"
+        "        'tacotron2_vae_torch.tools.multihost_dryrun', 'tacotron2_vae_torch.tools.train_turns'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tacotron2_vae_tpu'))]\n"
         "assert not bad, bad\n"
