@@ -6,16 +6,17 @@
     python3 chip_smoke.py --k56      # build, then only K5/K6 and the probes' entry
     python3 chip_smoke.py --k12      # build K1/K2 alone: their checks, then their timings
     python3 chip_smoke.py --dp       # build, then only the data-parallel checks (train_dp)
+    python3 chip_smoke.py --fp16     # build K1-K4, then only the float16 checks and fp16_run
 
 1. Environment: torch/CUDA versions, the card's name and power limit.
 2. Kernels: builds every CUDA kernel of the port from ``csrc/`` (one nvcc
    per source, started together) and holds each against its plain PyTorch
    twin on the card at full width, each output against its own tolerance:
-   K1 (decode loop) in bf16 and f32, B=1 and B=4, at S=64 with 200 forced
+   K1 (decode loop) in bf16, float16 and f32, B=1 and B=4, at S=64 with 200 forced
    steps, prenet dropout off and on, and at the serve phase's S=32 with 600
    forced steps; K2 (STFT -> mel -> log) on a 3 s and a 2 s synthetic wav;
    K3 and K4 (teacher-forced recurrence forward and backward) at B=64,
-   S=128, T=512 and at B=6, S=77, T=45 with masked rows, in bf16 and f32,
+   S=128, T=512 and at B=6, S=77, T=45 with masked rows, in bf16, float16 and f32,
    recurrent dropout off and on: every output, and every gradient of the
    recurrence through K4 against the same gradients through the twin;
    K5 and K6 (the reshape and output-block probes) at the probes' shapes,
@@ -26,14 +27,19 @@
    the same way (the floor of launch cost); for K3/K4
    also the device time per step of each of their kernels and, as a
    yardstick the port never calls, one bf16 ``torch.mm`` per LSTM product
-   shape.
+   shape; K3/K4 and K1 in float16 are timed too.
 3. Train: 11 ``make_train_step`` steps on a fixed full-width batch (B=64,
    S=128, T=512, bf16) with random weights from the seed (ms/step, mel
    frames/s, peak memory; the loss must fall), 10 more back to back (one
    synchronise), one under ``torch.cuda.set_sync_debug_mode("error")`` (no
-   host sync allowed); then the real entry point ``training.train.train``
+   host sync allowed); ``fp16_run`` on the same batch from the 2^32 loss
+   scale (n skipped steps, then the scale 2^32 / 2^n; 10 updates with a
+   falling loss; no host sync; K3/K4 on float16 streams) and the bf16 and
+   float16 steps' ms and peak memory in turns; then the real entry point
+   ``training.train.train``
    on a synthetic corpus of 128 + 16 clips through a validation, a
-   checkpoint and a resume (K2 from the loader's threads); ``train()`` at
+   checkpoint and a resume (K2 from the loader's threads), and again under
+   ``fp16_run`` (the resumed state holds the saved loss scale); ``train()`` at
    B=64 on 1024 clips with the reference corpus's texts, its input
    pipeline and metric window at their defaults against all at 1, in
    turns, with the card's busy share from a trace (``train_pipeline``);
@@ -91,9 +97,18 @@ TEXTS = [TEXT, "감사합니다.", "반갑습니다, 만나서 정말 기뻐요.
 # order flipped feeds back through the loop; a missing or misplaced rounding
 # shows here.  Whole run: in bf16 a bound on that drift.  Alignment limits
 # are in units of the uniform weight 1/S.
-K1_EARLY_STEPS, K1_EARLY_TOL = 2, 1e-5
+# In float16 (8x finer than bf16) a sum-order difference flips a rounding
+# within the first steps now and then (4.6e-5 at one element), about as far
+# as a missing rounding moves the worst element (3.2-8.0e-5), so float16
+# holds the early max loosely and the early mean of the mel tightly: a
+# flip moves a few elements, a missing rounding all of them (means 0.4-2.0e-6
+# correct, 1.0-1.8e-5 with one planted; PERF.md section 6).
+K1_EARLY_STEPS = 2
+K1_EARLY_TOL = {"float32": 1e-5, "bfloat16": 1e-5, "float16": 1e-4}
+K1_EARLY_MEAN_TOL = {"float16": {"mel": 5e-6}}
 K1_TOL = {"float32": {"mel": 1e-5, "gate": 1e-5, "align": 3e-4},
-          "bfloat16": {"mel": 1e-2, "gate": 1e-2, "align": 0.25}}
+          "bfloat16": {"mel": 1e-2, "gate": 1e-2, "align": 0.25},
+          "float16": {"mel": 1.25e-3, "gate": 1.25e-3, "align": 0.03125}}
 # (S, steps, memory lengths of rows 0..3, dropout settings): the shape the
 # kernels are tuned at (8 positions a CTA of the 8-CTA attention cluster),
 # and the serve phase's text bucket and step cap (4 a CTA, masked rows, 600
@@ -119,7 +134,7 @@ WG_MEL_FRAMES = 600                              # the serve phase's longest mel
 WG_CPU_FRAMES, WG_CPU_TOL = 32, 1e-4             # card vs CPU, relative to max |audio|
 WG_TRAIN = (4, 16000, 3)                         # batch, segment samples, steps
 HBM_BYTES_PER_S = 3.35e12
-PEAK = {"bfloat16": 989e12, "float32": 67e12}
+PEAK = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 
 
 def nvidia_smi() -> str:
@@ -168,7 +183,7 @@ def k1_bound(kw, B, S, steps, dtype_name):
     """Least time for the decode loop on these inputs: bytes with every input
     read once and every output written once, or the products' operations at
     the peak rate of their type, whichever is larger."""
-    itemsize = 2 if dtype_name == "bfloat16" else 4
+    itemsize = 4 if dtype_name == "float32" else 2
     Ha, Hd = kw["att_w"].shape[0] // 4, kw["dec_w"].shape[0] // 4
     P, n_in = kw["w1"].shape
     A, (KL, _, F) = kw["wq"].shape[0], kw["locw"].shape
@@ -222,8 +237,11 @@ def k1_compare(got, want, dtype_name, r):
         d = (g.float() - w.float()).abs()
         tol = K1_TOL[dtype_name][name] / (S if name == "align" else 1)
         row[f"err_{name}"], row[f"early_err_{name}"] = float(d.max()), float(first(d).max())
+        row[f"early_mean_err_{name}"] = float(first(d).mean())
         row[f"scale_{name}"] = float(w.abs().max())
-        if not (row[f"err_{name}"] <= tol and row[f"early_err_{name}"] <= K1_EARLY_TOL
+        mean_tol = K1_EARLY_MEAN_TOL.get(dtype_name, {}).get(name, math.inf)
+        if not (row[f"err_{name}"] <= tol and row[f"early_err_{name}"] <= K1_EARLY_TOL[dtype_name]
+                and row[f"early_mean_err_{name}"] <= mean_tol
                 and bool(torch.isfinite(g).all())):
             fails.append(name)
     return row, fails
@@ -249,7 +267,13 @@ def k1_check(dl, kw, memory, pmem, mask, dtype_name, steps, dropout_on, r):
     return row, args
 
 
-def kernels_phase(model, hp, device):
+K1_DTYPES = ("bfloat16", "float16", "float32")
+
+
+def kernels_phase(model, hp, device, k1_dtypes=K1_DTYPES, k2=True):
+    """K1 against its twin at every K1_CASES case and each of ``k1_dtypes``,
+    and K2 against its twin (and timed in turns with its library call)
+    unless ``k2`` is false."""
     import numpy as np
     import torch
     from tacotron2_vae_torch.ops import decoder_loop as dl
@@ -261,7 +285,7 @@ def kernels_phase(model, hp, device):
     dec = model.decoder
     mem_w = dec.attention_layer.memory_layer.linear_layer.weight
     k1_err, k1_main = 0.0, None
-    for dtype_name in ("bfloat16", "float32"):
+    for dtype_name in k1_dtypes:
         kw = dl.pack_weights(dec, getattr(torch, dtype_name))
         for S, steps, lengths, dropouts in K1_CASES:
             for B in (1, 4):
@@ -280,12 +304,18 @@ def kernels_phase(model, hp, device):
                         row["bound_ms"], row["bound_by"] = k1_bound(kw, B, S, steps,
                                                                     dtype_name)
                         row["weight_stream_us_per_step"] = k1_weight_stream_us(kw)
-                        if dtype_name == "bfloat16" and B == 4:
+                        if dtype_name == k1_dtypes[0] and B == 4:
                             k1_main = row
                     print(json.dumps(row), flush=True)
                     rows.append(row)
                     failed += [row] if row["fails"] else []
                     k1_err = max(k1_err, row["max_abs_err"])
+    report["K1"] = dict(k1_main, max_abs_err=k1_err)
+    if not k2:
+        if failed:
+            raise AssertionError(f"{len(failed)} kernel check(s) disagree with the twin: "
+                                 f"{failed}")
+        return report, rows
 
     key = (hp.filter_length, hp.hop_length, hp.win_length, hp.n_mel_channels,
            hp.sampling_rate, hp.mel_fmin, hp.mel_fmax)
@@ -321,7 +351,6 @@ def kernels_phase(model, hp, device):
     k2_main.update(ms=turns[0]["ms"], library_ms=turns[0]["library_ms"])
     if failed:
         raise AssertionError(f"{len(failed)} kernel check(s) disagree with the twin: {failed}")
-    report["K1"] = dict(k1_main, max_abs_err=k1_err)
     report["K2"] = dict(k2_main, max_abs_err=k2_err)
     return report, rows
 
@@ -566,7 +595,13 @@ K34_TOL = {"float32": {"early": 1e-5, "run": 2e-5},
            "bfloat16": {"early": {"h_att": 1e-4, "c_att_prev": 1e-4, "ctx": 1e-4, "w": 1e-4,
                                   "dctx": 1e-4, "h_dec": 1e-3, "c_dec_prev": 1e-3,
                                   "dpn": 4e-3, "stream": 2 ** -7},
-                        "run": 2e-2}}
+                        "run": 2e-2},
+           # the bf16 limits times the ratio of the two ulps, 2^-3
+           "float16": {"early": {"h_att": 1.25e-5, "c_att_prev": 1.25e-5, "ctx": 1.25e-5,
+                                 "w": 1.25e-5, "dctx": 1.25e-5, "h_dec": 1.25e-4,
+                                 "c_dec_prev": 1.25e-4, "dpn": 5e-4, "stream": 2 ** -10},
+                       "run": 2.5e-3}}
+K34_DTYPES = ("bfloat16", "float16", "float32")
 K3_OUT = ("h_dec", "ctx", "w", "g_att", "g_dec", "c_att_prev", "c_dec_prev", "h_att")
 K4_STREAMS = ("dg_att", "dg_dec", "dpn", "dctx", "dloc")
 K4_ACC = ("dv", "dWq", "dWld", "dpmem")
@@ -622,7 +657,7 @@ def k3_bound(w, B, S, T, dtype_name, masks):
     H, (A, E) = H4 // 4, (w["query_w"].shape[1], Kd - 2 * (H4 // 4))
     K, _, F = w["loc_w"].shape
     P = Ka - E - H
-    itemsize = 2 if dtype_name == "bfloat16" else 4
+    itemsize = 4 if dtype_name == "float32" else 2
     lstm = 2.0 * T * B * (Ka + Kd) * H4
     att = 2.0 * T * B * (H * A + S * (2 * K * F + F * A + A + E))
     weights = sum(t.numel() * t.element_size() for t in w.values())
@@ -642,7 +677,7 @@ def k4_bound(w, B, S, T, dtype_name, masks):
     H, (A, E) = H4 // 4, (w["query_w"].shape[1], Kd - 2 * (H4 // 4))
     K, _, F = w["loc_w"].shape
     P = Ka - E - H
-    itemsize = 2 if dtype_name == "bfloat16" else 4
+    itemsize = 4 if dtype_name == "float32" else 2
     lstm = 2.0 * T * B * (Ka + Kd) * H4
     att = 2.0 * T * B * (2 * H * A + S * (4 * K * F + 3 * F * A + 3 * A + 2 * E))
     weights = sum(t.numel() * t.element_size() for t in w.values())
@@ -656,7 +691,7 @@ def k4_bound(w, B, S, T, dtype_name, masks):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def k34_check(dec, B, S, T, lengths, dtype_name, dropout_on, device, timed):
+def k34_check(dec, B, S, T, lengths, dtype_name, dropout_on, device, timed, breakdown=True):
     """K3 and K4 against their twins on one input, and every gradient of
     the recurrence through K4 against the same gradients through the twin."""
     import torch
@@ -727,9 +762,10 @@ def k34_check(dec, B, S, T, lengths, dtype_name, dropout_on, device, timed):
         row["K4_plain_ms"] = cuda_ms(lambda: tf.teacher_bwd_plain(*bwd_args), 1)
         row["K3_bound_ms"], row["K3_bound_by"] = k3_bound(w, B, S, T, dtype_name, masks)
         row["K4_bound_ms"], row["K4_bound_by"] = k4_bound(w, B, S, T, dtype_name, masks)
-        for k, fn in (("K3", fwd), ("K4", bwd)):
-            row[f"{k}_us_per_step_by_kernel"] = kernel_breakdown(fn, T)
-        row["torch_mm_ms"] = mm_yardstick(device)
+        if breakdown:
+            for k, fn in (("K3", fwd), ("K4", bwd)):
+                row[f"{k}_us_per_step_by_kernel"] = kernel_breakdown(fn, T)
+            row["torch_mm_ms"] = mm_yardstick(device)
     return row
 
 
@@ -769,22 +805,25 @@ def short_name(key):
     return re.split(r"[(<]", name)[0].split("::")[-1] or key[:40]
 
 
-def k34_phase(model, device):
-    """K3 and K4 against their twins at every case, dtype and dropout
-    setting; the bf16 full-width case with dropout is timed."""
+def k34_phase(model, device, dtypes=K34_DTYPES):
+    """K3 and K4 against their twins at every case, dtype of ``dtypes`` and
+    dropout setting; the full-width case with dropout is timed in bf16 (with
+    the per-kernel breakdown: ``report["row"]``) and float16
+    (``report["row_float16"]``)."""
     rows, failed = [], []
     report = {}
     for B, S, T, lengths in K34_CASES:
-        for dtype_name in ("bfloat16", "float32"):
+        for dtype_name in dtypes:
             for dropout_on in (False, True):
-                timed = B == K34_CASES[0][0] and dtype_name == "bfloat16" and dropout_on
+                timed = (B == K34_CASES[0][0] and dtype_name in ("bfloat16", "float16")
+                         and dropout_on)
                 row = k34_check(model.decoder, B, S, T, lengths, dtype_name, dropout_on,
-                                device, timed)
+                                device, timed, breakdown=dtype_name == "bfloat16")
                 print(json.dumps(row), flush=True)
                 rows.append(row)
                 failed += [row] if row["fails"] else []
                 if timed:
-                    report["row"] = row
+                    report["row" if dtype_name == "bfloat16" else "row_float16"] = row
                 for k in ("K3", "K4"):
                     report[k] = max(report.get(k, 0.0), row[f"{k}_max_abs_err"])
     if failed:
@@ -1012,6 +1051,175 @@ def train_entry(hp, device, tmp):
         raise AssertionError(f"missing checkpoints: {row['checkpoints']}")
     if min(launches.values()) < 1:
         raise AssertionError(f"train() did not run through K2/K3/K4: {launches}")
+    return row
+
+
+FP16_UPDATES, FP16_MAX_STEPS = 10, 60   # train_fp16: updates to take, within this many steps
+FP16_TURNS = ("bfloat16", "float16", "float16", "bfloat16")
+FP16_TURN_STEPS = 3                     # timed steps a turn, after one untimed
+
+
+def stream_spy(tf):
+    """Record the stream dtype of every K3 and K4 launch: wraps the
+    wrappers' launch functions (``_run_fwd``, ``_run_bwd``) until the
+    returned ``restore`` is called."""
+    seen = {"K3": [], "K4": []}
+    run_fwd, run_bwd = tf._run_fwd, tf._run_bwd
+
+    def fwd(w, *a, **k):
+        seen["K3"].append(str(w["attn_w"].dtype).replace("torch.", ""))
+        return run_fwd(w, *a, **k)
+
+    def bwd(w, *a, **k):
+        seen["K4"].append(str(w["attn_w"].dtype).replace("torch.", ""))
+        return run_bwd(w, *a, **k)
+
+    tf._run_fwd, tf._run_bwd = fwd, bwd
+
+    def restore():
+        tf._run_fwd, tf._run_bwd = run_fwd, run_bwd
+
+    return seen, restore
+
+
+def train_fp16(hp, device):
+    """``make_train_step`` under ``fp16_run`` on the fixed full-width batch
+    from the default 2^32 loss scale: the steps before the first update
+    are skipped (the float16 streams overflow) and each halves the scale,
+    so the first update's scale is 2^32 / 2^n after n skips; steps run
+    until FP16_UPDATES updates (at most FP16_MAX_STEPS), the loss must fall
+    over the updated steps, one more step runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, and K3/K4 must launch on
+    float16 streams only.  Then ms/step and peak memory of the bf16 and the
+    float16 step in turns (FP16_TURNS, each FP16_TURN_STEPS synchronised
+    steps after one untimed)."""
+    import torch
+    from tacotron2_vae_torch.ops import teacher_fwd as tf
+    from tacotron2_vae_torch.training.train_state import create_train_state, make_train_step
+
+    hp16 = hp.replace(fp16_run=True)
+    batch = fixed_batch(hp, device)
+    ts = create_train_state(hp16, device, seed=SEED)
+    step = make_train_step(hp16)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    init_scale = float(ts.scaler.scale)
+    seen, restore = stream_spy(tf)
+    tf.teacher_fwd.launches = tf.teacher_bwd.launches = 0
+    rows = []
+    try:
+        while len(rows) < FP16_MAX_STEPS and sum(r[2] for r in rows) < FP16_UPDATES:
+            m = step(ts, batch, gen)
+            rows.append(torch.stack([m["loss"], m["grad_norm"], m["updated"].float(),
+                                     m["loss_scale"]]).tolist())
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            m = step(ts, batch, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches = {"K3": tf.teacher_fwd.launches, "K4": tf.teacher_bwd.launches}
+    updated = [r for r in rows if r[2] == 1.0]
+    n_skipped = next((i for i, r in enumerate(rows) if r[2] == 1.0), len(rows))
+    first_scale = rows[n_skipped][3] if updated else None
+    row = {"phase": "train_fp16", "B": TRAIN_SHAPE[0], "S": TRAIN_SHAPE[1],
+           "T": TRAIN_SHAPE[2], "init_scale": init_scale, "skipped_before_first_update": n_skipped,
+           "first_update_scale": first_scale, "steps": len(rows), "updates": len(updated),
+           "loss_updated": [r[0] for r in updated], "grad_norm_updated": [r[1] for r in updated],
+           "loss_scale": [r[3] for r in rows], "sync_debug_step": "no host sync",
+           "launches": launches, "stream_dtypes": {k: sorted(set(v)) for k, v in seen.items()}}
+    row.update(step_turns(hp, hp16, batch, device))
+    print(json.dumps(row), flush=True)
+    if len(updated) < FP16_UPDATES:
+        raise AssertionError(f"fp16_run took {len(updated)} updates in {len(rows)} steps")
+    if first_scale != init_scale / 2 ** n_skipped:
+        raise AssertionError(f"scale {first_scale} after {n_skipped} skips from {init_scale}")
+    if not (all(math.isfinite(v) for v in row["loss_updated"] + row["grad_norm_updated"])
+            and row["loss_updated"][-1] < row["loss_updated"][0]):
+        raise AssertionError(f"the fp16 loss did not fall over its updates: "
+                             f"{row['loss_updated']}")
+    if row["stream_dtypes"] != {"K3": ["float16"], "K4": ["float16"]} or min(
+            launches.values()) < len(rows) + 1:
+        raise AssertionError(f"the fp16 steps did not run K3/K4 on float16 streams: "
+                             f"{row['stream_dtypes']}, {launches}")
+    return row
+
+
+def step_turns(hp, hp16, batch, device):
+    """ms/step (CUDA events, synchronised) and peak memory of the bf16 and
+    the fp16_run step on ``batch``, in the turns of FP16_TURNS."""
+    import torch
+    from tacotron2_vae_torch.training.train_state import create_train_state, make_train_step
+
+    configs = {"bfloat16": hp, "float16": hp16}
+    states = {k: create_train_state(h, device, seed=SEED) for k, h in configs.items()}
+    steps = {k: make_train_step(h) for k, h in configs.items()}
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    out = {f"ms_per_step_{k}": [] for k in configs}
+    out.update({f"peak_memory_gb_{k}": [] for k in configs})
+    for name in FP16_TURNS:
+        steps[name](states[name], batch, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(FP16_TURN_STEPS):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            steps[name](states[name], batch, gen)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        out[f"ms_per_step_{name}"].append(sum(times) / len(times))
+        out[f"peak_memory_gb_{name}"].append(torch.cuda.max_memory_allocated() / 1e9)
+    return out
+
+
+def train_entry_fp16(hp, device, tmp):
+    """``training.train.train`` under ``fp16_run`` on a synthetic corpus (64
+    training and 16 validation clips, B=32, two batches an epoch): two
+    epochs with a validation and a checkpoint at iteration 2 (the scaler
+    saved in it), then a resume from checkpoint_2 through a third epoch
+    (validations at 4 and 6).  A state resumed from
+    checkpoint_2 must hold its saved scale, below the fresh 2^32 (the
+    float16 steps skipped), and K3/K4 must launch."""
+    import numpy as np
+    import torch
+    from tacotron2_vae_torch.ops import teacher_fwd as tf
+    from tacotron2_vae_torch.training import train as tr
+    from tacotron2_vae_torch.training.checkpoint import load_checkpoint
+    from tacotron2_vae_torch.training.train_state import create_train_state
+
+    rng = np.random.RandomState(SEED + 16)
+    hp16 = hp.replace(training_files=write_corpus(tmp, 64, rng, "train"),
+                      validation_files=write_corpus(tmp, 16, rng, "val"),
+                      batch_size=32, epochs=2, iters_per_checkpoint=2, mel_cache=True,
+                      fp16_run=True)
+    out = os.path.join(tmp, "out16")
+    tf.teacher_fwd.launches = tf.teacher_bwd.launches = 0
+    t0 = time.perf_counter()
+    ts1, it = tr.train(out, "logs", None, False, hp16, device=str(device))
+    ckpt = os.path.join(out, "checkpoint_2")
+    saved = [float(x) for x in torch.load(ckpt, weights_only=True)["scaler"]]
+    resumed, _, _ = load_checkpoint(ckpt, create_train_state(hp16, device))
+    ts2, it2 = tr.train(out, "logs", ckpt, False, hp16.replace(epochs=3), device=str(device))
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, "logs", "val_metrics.csv")) as f:
+        val = [line.strip().split(",") for line in f.readlines()[1:]]
+    row = {"phase": "train_entry_fp16", "end": [it, it2], "validations": val,
+           "checkpoints": sorted(os.listdir(out)), "saved_scaler": saved,
+           "resumed_scaler": [float(x) for x in resumed.scaler],
+           "final_scale": [float(ts1.scaler.scale), float(ts2.scaler.scale)], "wall_s": wall,
+           "launches": {"K3": tf.teacher_fwd.launches, "K4": tf.teacher_bwd.launches}}
+    print(json.dumps(row), flush=True)
+    if [v[0] for v in val] != ["2", "4", "6"] or not all(
+            math.isfinite(float(x)) for v in val for x in v[1:]):
+        raise AssertionError(f"fp16 train/resume validations wrong: {val}")
+    if row["resumed_scaler"] != saved or not saved[0] < 2.0 ** 32:
+        raise AssertionError(f"resumed scaler {row['resumed_scaler']} against saved {saved}")
+    if min(row["launches"].values()) < 1:
+        raise AssertionError(f"fp16 train() did not run through K3/K4: {row['launches']}")
     return row
 
 
@@ -1603,7 +1811,8 @@ def main() -> int:
     t0 = time.perf_counter()
     names = (["reshape_probe"] if "--k56" in sys.argv[1:] else
              ["decoder_loop", "stft_mel"] if "--k12" in sys.argv[1:] else
-             ["decoder_loop", "stft_mel", "teacher_fwd", "teacher_bwd", "reshape_probe"])
+             ["decoder_loop", "stft_mel", "teacher_fwd", "teacher_bwd"] if "--fp16" in sys.argv[1:]
+             else ["decoder_loop", "stft_mel", "teacher_fwd", "teacher_bwd", "reshape_probe"])
     logs = _build.build(names, verbose=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         for name, log in logs.items():
@@ -1628,14 +1837,27 @@ def main() -> int:
     if "--k12" in sys.argv[1:]:  # the decode-loop and log-mel kernels alone, then timed
         k12_phase(model, hp, device)
         return 0
+    if "--fp16" in sys.argv[1:]:  # the float16 kernel checks and fp16_run alone
+        kernels_phase(model, hp, device, k1_dtypes=("float16",), k2=False)
+        k34_phase(model, device, dtypes=("float16",))
+        train_fp16(hp, device)
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            train_entry_fp16(hp, device, tmp)
+        return 0
     report, rows = kernels_phase(model, hp, device)
     k56, k56_rows = k56_phase(device)
     report.update(k56)
     k34, k34_rows = k34_phase(model, device)
     steady = steady_steps(hp, device)
     torch.cuda.empty_cache()
+    fp16 = train_fp16(hp, device)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         entry = train_entry(hp, device, tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        entry16 = train_entry_fp16(hp, device, tmp)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         pipeline = train_pipeline(hp, device, tmp)
@@ -1649,7 +1871,7 @@ def main() -> int:
     launches.update({k: entry["launches"][k] for k in ("K3", "K4")}, **probes["launches"])
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernel_checks": rows + k56_rows + k34_rows,
-                   "requests": results, "train": [steady, entry, pipeline, dp],
+                   "requests": results, "train": [steady, fp16, entry, entry16, pipeline, dp],
                    "probes": probes,
                    "launches": launches}, f, indent=1)
 

@@ -84,6 +84,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -105,12 +106,16 @@ template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+template <> __device__ __forceinline__ float to_f<__half>(__half v) { return __half2float(v); }
 
 // float -> weight dtype -> float (the TPU kernel's `.astype(io_dtype)`).
 template <typename T> __device__ __forceinline__ float rnd(float v);
 template <> __device__ __forceinline__ float rnd<float>(float v) { return v; }
 template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
+}
+template <> __device__ __forceinline__ float rnd<__half>(float v) {
+  return __half2float(__float2half_rn(v));
 }
 
 __device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
@@ -166,6 +171,21 @@ template <> struct Vec<__nv_bfloat16> {
     }
   }
   __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
+    unpack(*reinterpret_cast<const uint4*>(p), out);
+  }
+};
+template <> struct Vec<__half> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void unpack(uint4 v, float* out) {
+    const __half2* h = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 f = __half22float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+  __device__ __forceinline__ static void load(const __half* p, float* out) {
     unpack(*reinterpret_cast<const uint4*>(p), out);
   }
 };
@@ -894,7 +914,8 @@ cudaError_t run_b(const Args& a) {
 
 }  // namespace
 
-// dtype: 0 = float32 weights, 1 = bfloat16 weights.  Shapes (row-major):
+// dtype: 0 = float32 weights, 1 = bfloat16, 2 = float16 (ops/decoder_loop.py
+// DTYPES); any other value returns cudaErrorInvalidValue.  Shapes (row-major):
 //   w1 (P, n_out), w2 (P, P); att_w (4Ha, P+E+Ha), att_b (4Ha);
 //   dec_w (4Hd, Ha+E+Hd), dec_b (4Hd); wq (A, Ha); locw (KL, 2, F);
 //   ldw (F, A); v (A); pg_w (n_out+1, Hd+E), pg_b (n_out+1);
@@ -925,6 +946,10 @@ extern "C" int t2v_decode_loop(
          mel_out, gate_out, align_out,
          max_steps, dropout_on, check_every, thr, seed,
          static_cast<cudaStream_t>(stream)};
-  cudaError_t err = dtype == 1 ? run_b<__nv_bfloat16>(a) : run_b<float>(a);
-  return (int)err;
+  switch (dtype) {
+    case 0: return (int)run_b<float>(a);
+    case 1: return (int)run_b<__nv_bfloat16>(a);
+    case 2: return (int)run_b<__half>(a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -48,7 +48,10 @@
 //             of query_w, so query_w is read once a step
 //   dx_tc     dx_att = dg_att . attn_w^T into dpn[t] and the dctx / dh_att
 //             carries
-// The float32 stream keeps the FFMA products (gemm_nt + sum_split).
+// The float32 stream keeps the FFMA products (gemm_nt + sum_split).  The
+// float16 stream (fp16_run) runs the bf16 kernels instantiated on __half;
+// its dg and dloc streams are rounded to f16 with no clamp, so a loss
+// scale that overflows them gives inf or NaN, which the step must see.
 // Cross-row sums (dv, dWld) go to per-(row, CTA) partials owned across all
 // steps and summed in a fixed order at the end, so the kernel is
 // reproducible run to run; dWq rows and dpmem rows each have one owner.
@@ -171,10 +174,12 @@ __global__ void sum_split(const float* __restrict__ part, int nsplit, int B, int
 }
 
 
-// bf16 dx product: out (B, Kout) = dg[t] (B, 4H) . W^T, W (Kout, 4H), for
-// the CTA's 128 output columns, the reduction split over the kTcSplit CTAs
-// of a cluster and summed in rank order; the sums go to the column
-// segments of `out`.  mg maps dg (T, B, 4H) and mw the weight.
+// dx product in a 2-byte stream type T (bf16 or f16): out (B, Kout) =
+// dg[t] (B, 4H) . W^T, W (Kout, 4H), for the CTA's 128 output columns, the
+// reduction split over the kTcSplit CTAs of a cluster and summed in rank
+// order; the sums go to the column segments of `out`.  mg maps dg (T, B,
+// 4H) and mw the weight.
+template <typename T>
 __global__ void __cluster_dims__(1, kTcSplit, 1) __launch_bounds__(kTcThreads)
 dx_tc(const __grid_constant__ CUtensorMap mg, const __grid_constant__ CUtensorMap mw, int t,
       int N4, int Kout, int B, OutSeg3 out) {
@@ -190,7 +195,7 @@ dx_tc(const __grid_constant__ CUtensorMap mg, const __grid_constant__ CUtensorMa
 #pragma unroll
   for (int i = 0; i < kTcCols / 2; ++i) acc[i] = 0.0f;
   const CUtensorMap *pmg = &mg, *pmw = &mw;
-  tc_mainloop<kTcCols, kTcStages, false>(
+  tc_mainloop<T, kTcCols, kTcStages, false>(
       ring, it0, it1, 16, 1024,
       [&](uint8_t* sa, uint8_t* sb, uint64_t* bar, int it) {
         const int n0 = it * kTileK;
@@ -523,7 +528,7 @@ cudaError_t run(BwdAtt ba, const float* wq, const void* attn_w_, const void* dec
   const T* g_dec = static_cast<const T*>(g_dec_);
   T* dg_att = static_cast<T*>(dg_att_);
   T* dg_dec = static_cast<T*>(dg_dec_);
-  constexpr bool kTc = sizeof(T) == 2;
+  constexpr bool kTc = is_tc<T>();
   const int B = d.B, H = d.H, E = d.E, P = d.P, A = d.A;
   const int Kd = 2 * H + E, Ka = P + E + H, H4 = 4 * H;
   const size_t att_smem = (size_t)AttSmem::bwd_floats(d) * sizeof(float);
@@ -531,17 +536,18 @@ cudaError_t run(BwdAtt ba, const float* wq, const void* attn_w_, const void* dec
   const size_t tc_smem = TcRing<kTcCols, kTcStages>::kSmemBytes;
   cudaError_t err = smem_attr((const void*)att_bwd<T>, att_smem);
   if (err == cudaSuccess) err = smem_attr((const void*)lstm_bwd<T>, ew_smem);
-  if (err == cudaSuccess && kTc) err = smem_attr((const void*)dx_tc, tc_smem);
+  if constexpr (kTc)
+    if (err == cudaSuccess) err = smem_attr((const void*)dx_tc<T>, tc_smem);
   if (err != cudaSuccess) return err;
   CUtensorMap mga, mgd, mwa, mwd;
-  if (kTc) {
+  if constexpr (kTc) {
     const uint64_t dg3[3] = {(uint64_t)H4, (uint64_t)B, (uint64_t)d.T};
     const uint64_t dwa[2] = {(uint64_t)H4, (uint64_t)Ka}, dwd[2] = {(uint64_t)H4, (uint64_t)Kd};
     const uint32_t bg[3] = {kTileK, kRows, 1}, bw[2] = {kTileK, kTcCols};
-    if ((err = tensor_map(&mga, dg_att, 3, dg3, bg)) != cudaSuccess ||
-        (err = tensor_map(&mgd, dg_dec, 3, dg3, bg)) != cudaSuccess ||
-        (err = tensor_map(&mwa, attn_w, 2, dwa, bw)) != cudaSuccess ||
-        (err = tensor_map(&mwd, dec_w, 2, dwd, bw)) != cudaSuccess)
+    if ((err = tensor_map<T>(&mga, dg_att, 3, dg3, bg)) != cudaSuccess ||
+        (err = tensor_map<T>(&mgd, dg_dec, 3, dg3, bg)) != cudaSuccess ||
+        (err = tensor_map<T>(&mwa, attn_w, 2, dwa, bw)) != cudaSuccess ||
+        (err = tensor_map<T>(&mwd, dec_w, 2, dwd, bw)) != cudaSuccess)
       return err;
   }
   const size_t BH = (size_t)B * H;
@@ -550,8 +556,8 @@ cudaError_t run(BwdAtt ba, const float* wq, const void* attn_w_, const void* dec
   auto product = [&](cudaStream_t s, const T* dg, const CUtensorMap& mg, const CUtensorMap& mw,
                      const T* w, int K, int t, const OutSeg3& out) {
     if constexpr (kTc) {
-      dx_tc<<<dim3(cdiv(K, kTcCols), kTcSplit), kTcThreads, tc_smem, s>>>(mg, mw, t, H4, K, B,
-                                                                          out);
+      dx_tc<T><<<dim3(cdiv(K, kTcCols), kTcSplit), kTcThreads, tc_smem, s>>>(mg, mw, t, H4, K,
+                                                                             B, out);
     } else {
       gemm_nt<T><<<dim3((K + kCols - 1) / kCols, kSplit), kGemmThreads, 0, s>>>(
           dg, H4, w, K, B, nchunk, part);
@@ -584,7 +590,8 @@ cudaError_t run(BwdAtt ba, const float* wq, const void* attn_w_, const void* dec
 
 }  // namespace
 
-// dtype: 0 = float32 stream, 1 = bfloat16.  Inputs (row-major): attn_w
+// dtype: 0 = float32 stream, 1 = bfloat16, 2 = float16 (StreamType); any
+// other value returns cudaErrorInvalidValue.  Inputs (row-major): attn_w
 // (P+E+H, 4H), dec_w (2H+E, 4H) stream dtype; query_w (H, A), loc_w
 // (K, 2, F), loc_dense_w (F, A), v (A), memory (B, S, E), pmem (B, S, A);
 // masks m1..m4 (T, B, H) stream dtype or all null; the output cotangents
@@ -626,15 +633,18 @@ extern "C" int t2v_teacher_bwd(
       pmem, m1, m2, m3, m4, dh_dec, dctx, dw, g_att, g_dec, c_att_prev, c_dec_prev, h_att, w_seq,
       w_cum_prev, dg_att, dg_dec, dpn, dctx_tot, dloc, dv, dwq, dwld, dpmem, dx_dec, dh_att_c,
       dctx_c, dc_att, dc_dec, dw_prev_c, dwcum_c, dq, dv_part, dwld_part, zeros, part, qpart);
-  const cudaError_t err =
-      dtype == 1
-          ? run<__nv_bfloat16>(ba, query_w, attn_w, dec_w, m1, m2, m3, m4, dh_dec, g_att, g_dec,
-                               c_att_prev, c_dec_prev, h_att, dg_att, dg_dec, dpn, dv, dwq, dwld,
-                               dx_dec, dh_att_c, dc_att, dc_dec, part, qpart, graph != 0, key, st)
-          : run<float>(ba, query_w, attn_w, dec_w, m1, m2, m3, m4, dh_dec, g_att, g_dec,
-                       c_att_prev, c_dec_prev, h_att, dg_att, dg_dec, dpn, dv, dwq, dwld, dx_dec,
-                       dh_att_c, dc_att, dc_dec, part, qpart, graph != 0, key, st);
-  return (int)err;
+  auto go = [&](auto tag) {  // tag: a null T*
+    using T = std::remove_pointer_t<decltype(tag)>;
+    return run<T>(ba, query_w, attn_w, dec_w, m1, m2, m3, m4, dh_dec, g_att, g_dec, c_att_prev,
+                  c_dec_prev, h_att, dg_att, dg_dec, dpn, dv, dwq, dwld, dx_dec, dh_att_c, dc_att,
+                  dc_dec, part, qpart, graph != 0, key, st);
+  };
+  switch (dtype) {
+    case kF32: return (int)go(static_cast<float*>(nullptr));
+    case kBF16: return (int)go(static_cast<__nv_bfloat16*>(nullptr));
+    case kF16: return (int)go(static_cast<__half*>(nullptr));
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Step-loop graphs instantiated so far by t2v_teacher_bwd (replays and

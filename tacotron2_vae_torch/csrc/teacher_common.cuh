@@ -1,7 +1,8 @@
 // Pieces shared by the teacher-forced recurrence kernels K3
 // (teacher_fwd.cu) and K4 (teacher_bwd.cu): type helpers, block
-// reductions, the Hopper building blocks of the bf16 LSTM products (TMA
-// tensor maps, mbarriers, wgmma and the producer/consumer ring), the
+// reductions, the Hopper building blocks of the bf16 and float16 LSTM
+// products (TMA tensor maps, mbarriers, wgmma and the producer/consumer
+// ring, each templated on the 2-byte stream type), the
 // batched query product, and the per-chunk location-sensitive attention
 // terms.  The backward recomputes the attention energies with the same
 // functions (and the same query product) the forward used, so both see the
@@ -20,11 +21,13 @@
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
 #include <mutex>
+#include <type_traits>
 #include <utility>
 #include <vector>
 
@@ -46,12 +49,16 @@ template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+template <> __device__ __forceinline__ float to_f<__half>(__half v) { return __half2float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
+// round to nearest even; past 65504 this is inf, as PyTorch's cast: a loss
+// scale that overflows the float16 streams must show as inf, not a clamp
+template <> __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half_rn(v); }
 
 // float -> stream dtype -> float (the XLA scan's `.astype(compute_dtype)`)
 template <typename T> __device__ __forceinline__ float rnd(float v) {
@@ -115,6 +122,27 @@ template <> struct Vec8<__nv_bfloat16> {
     }
   }
 };
+template <> struct Vec8<__half> {
+  __device__ __forceinline__ static void load(const __half* p, float* o) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const __half2* h = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(h[i]);
+      o[2 * i] = f.x;
+      o[2 * i + 1] = f.y;
+    }
+  }
+};
+
+// The stream dtype codes of the C entry points (ops/teacher_fwd.py DTYPES);
+// any other value is refused.
+enum StreamType { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+// The 2-byte stream types take the tensor-core products.
+template <typename T> constexpr bool is_tc() {
+  return std::is_same<T, __nv_bfloat16>::value || std::is_same<T, __half>::value;
+}
 
 struct Dims {
   int T, B, S, E, H, P, A, F, K;
@@ -214,67 +242,82 @@ __device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo, uint3
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
-// D (64 x N, float32 in registers) += A (64 x 16, K-major) . B (16 x N):
+// D (64 x N, float32 in registers) += A (64 x 16, K-major) . B (16 x N),
+// A and B in the stream type T (bf16 or f16, one asm statement each):
 // N = 256 with B MN-major (the forward's (K, 4H) weight as it is stored),
 // N = 128 with B K-major (the backward's contraction over 4H).  Thread t of
 // the warpgroup holds, for each 8-column block i, rows 16(t/32) + (t%32)/4
 // (+8) and columns 8i + 2(t%4) (+1) in d[4i .. 4i+3].
+#define T2V_WGMMA_M64N256(AB) \
+  asm volatile( \
+      "{\n" \
+      ".reg .pred p;\n" \
+      "setp.ne.b32 p, %130, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." AB "." AB " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63," \
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79," \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95," \
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111," \
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127" \
+      "}, %128, %129, p, 1, 1, 0, 1;\n" \
+      "}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), \
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), \
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), \
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), \
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), \
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127]) \
+      : "l"(da), "l"(db), "r"(1))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+  if constexpr (std::is_same<T, __half>::value)
+    T2V_WGMMA_M64N256("f16");
+  else
+    T2V_WGMMA_M64N256("bf16");
 }
 
+#define T2V_WGMMA_M64N128(AB) \
+  asm volatile( \
+      "{\n" \
+      ".reg .pred p;\n" \
+      "setp.ne.b32 p, %66, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+      "}, %64, %65, p, 1, 1, 0, 0;\n" \
+      "}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "l"(da), "l"(db), "r"(1))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+  if constexpr (std::is_same<T, __half>::value)
+    T2V_WGMMA_M64N128("f16");
+  else
+    T2V_WGMMA_M64N128("bf16");
 }
 
 // Ring of kS stages in shared memory (each an A tile of 64 rows x 64 k and
@@ -312,7 +355,7 @@ __device__ __forceinline__ void tc_init_barriers(uint8_t* ring) {
   __syncthreads();
 }
 
-template <int N, int kS, bool kMN, typename Load>
+template <typename T, int N, int kS, bool kMN, typename Load>
 __device__ __forceinline__ void tc_mainloop(uint8_t* ring, int it0, int it1, uint32_t lbo,
                                             uint32_t sbo, Load&& load, float (&acc)[N / 2]) {
   using R = TcRing<N, kS>;
@@ -343,9 +386,9 @@ __device__ __forceinline__ void tc_mainloop(uint8_t* ring, int it0, int it1, uin
     for (int kk = 0; kk < kTileK / 16; ++kk) {
       // k16 steps: 32 bytes along a K-major row; 16 rows (2048 bytes) of an MN-major tile
       if constexpr (N == 256)
-        wgmma_m64n256(acc, da + 2 * kk, db + (kMN ? 128 : 2) * kk);
+        wgmma_m64n256<T>(acc, da + 2 * kk, db + (kMN ? 128 : 2) * kk);
       else
-        wgmma_m64n128(acc, da + 2 * kk, db + (kMN ? 128 : 2) * kk);
+        wgmma_m64n128<T>(acc, da + 2 * kk, db + (kMN ? 128 : 2) * kk);
     }
     wgmma_commit();
     wgmma_wait0();
@@ -366,15 +409,18 @@ __device__ __forceinline__ void tc_store(const float (&acc)[N / 2], float* part,
   }
 }
 
-// A row-major bf16 tensor of up to 3 dims (innermost first) as a TMA map with
-// a 128-byte-swizzled box; out-of-range rows and columns load as zeros.
+// A row-major tensor of a 2-byte stream type T of up to 3 dims (innermost
+// first) as a TMA map with a 128-byte-swizzled box; out-of-range rows and
+// columns load as zeros.
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
+template <typename T>
 inline cudaError_t tensor_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
                               const uint32_t* box) {
+  static_assert(is_tc<T>(), "TMA maps of the 2-byte streams only");
   static EncodeTiledFn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -398,7 +444,10 @@ inline cudaError_t tensor_map(CUtensorMap* map, const void* base, int rank, cons
       stride *= dims[i];
     }
   }
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+  const CUtensorMapDataType type = std::is_same<T, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUresult r = encode(map, type, rank, const_cast<void*>(base),
                             gd, gs, bx, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -58,6 +58,10 @@
 // 3,074-node graph costs 12-16 or 23-34 ms, so the graphs of the last four
 // sets of sizes are kept (launch_loop in teacher_common.cuh), and a call at
 // known sizes with new pointers updates its graph in place.
+// The float16 stream (fp16_run) runs the bf16 stream's kernels instantiated
+// on __half: f16 wgmma products, f16 TMA maps, gates and operands rounded
+// to f16 (round to nearest even; past 65504 a value becomes inf, which the
+// step's overflow check must see).
 // No float atomics: every sum has one owner and a fixed order.
 
 #include "teacher_common.cuh"
@@ -193,30 +197,33 @@ __global__ void lstm_cell(const float* __restrict__ part, int nsplit,
 }
 
 
-// The cell of one LSTM at step t, applied by the clusters of lstm_tc.
+// The cell of one LSTM at step t, applied by the clusters of lstm_tc; T is
+// the 2-byte stream type (bf16 or f16).
+template <typename T>
 struct Cell {
   const float* bias;            // (4H)
   const float* c_prev;          // (B, H)
   float* c_next;                // (B, H) or null (last step)
   float* h_out;                 // (B, H) float32
-  __nv_bfloat16* g_out;         // (B, 4H) the gates, stored in bf16
-  const __nv_bfloat16 *mh, *mc;  // dropout masks (B, H) or null
-  __nv_bfloat16* x1;            // bf16 copy of h into an operand matrix (row stride ld1)
+  T* g_out;                     // (B, 4H) the gates, stored in T
+  const T *mh, *mc;             // dropout masks (B, H) or null
+  T* x1;                        // T copy of h into an operand matrix (row stride ld1)
   int ld1;
-  __nv_bfloat16* x2;            // a second copy, or null
+  T* x2;                        // a second copy, or null
   int ld2;
   const float* pn;              // the next step's prenet rows (B, P) or null
-  __nv_bfloat16* pn_dst;        // their bf16 copy (row stride ldp)
+  T* pn_dst;                    // their T copy (row stride ldp)
   int P, ldp;
 };
 
-// bf16 LSTM product and cell: gates (B, 4H) = X (64 x K, bf16, zero rows
-// past B) . W (K, 4H) + bias for the CTA's 64 units, split over the
-// kTcSplit CTAs of a cluster (see the note at the top).  X[par] and W are
-// TMA maps.
+// LSTM product and cell in a 2-byte stream type T: gates (B, 4H) = X (64 x
+// K, T, zero rows past B) . W (K, 4H) + bias for the CTA's 64 units, split
+// over the kTcSplit CTAs of a cluster (see the note at the top).  X[par]
+// and W are TMA maps.
+template <typename T>
 __global__ void __cluster_dims__(1, kTcSplit, 1) __launch_bounds__(kTcThreads)
 lstm_tc(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw, int par,
-        int K, int H, int B, Cell c) {
+        int K, int H, int B, Cell<T> c) {
   extern __shared__ uint8_t smraw[];
   using R = TcRing<4 * kTcUnits, kTcStages>;
   uint8_t* ring = align1024(smraw);
@@ -231,7 +238,7 @@ lstm_tc(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensor
   const CUtensorMap *pmx = &mx, *pmw = &mw;
   // MN-major weight tile: 64-unit boxes (kBBytes / 4 apart) of 64 k rows,
   // 8-row k groups 1 KB apart
-  tc_mainloop<4 * kTcUnits, kTcStages, true>(
+  tc_mainloop<T, 4 * kTcUnits, kTcStages, true>(
       ring, it0, it1, R::kBBytes / 4, 1024,
       [&](uint8_t* sa, uint8_t* sb, uint64_t* bar, int it) {
         const int k0 = it * kTileK;
@@ -258,8 +265,8 @@ lstm_tc(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensor
       for (int g = 0; g < 4; ++g) bias[g][e] = c.bias[g * H + j + e];
       const size_t bj = (size_t)b * H + j + e;
       cp[e] = c.c_prev[bj];
-      mhv[e] = c.mh != nullptr ? __bfloat162float(c.mh[bj]) : 1.0f;
-      mcv[e] = c.mh != nullptr ? __bfloat162float(c.mc[bj]) : 1.0f;
+      mhv[e] = c.mh != nullptr ? to_f<T>(c.mh[bj]) : 1.0f;
+      mcv[e] = c.mh != nullptr ? to_f<T>(c.mc[bj]) : 1.0f;
     }
   }
   cl.sync();
@@ -286,7 +293,7 @@ lstm_tc(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensor
       for (int g = 0; g < 4; ++g) {
         const float4& v = gs[g];
         gv[g] = (e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w) + bias[g][e];
-        c.g_out[(size_t)b * H4 + g * H + j + e] = __float2bfloat16(gv[g]);
+        c.g_out[(size_t)b * H4 + g * H + j + e] = from_f<T>(gv[g]);
       }
       const size_t bj = (size_t)b * H + j + e;
       float cc = sigm(gv[1]) * cp[e] + sigm(gv[0]) * tanhf(gv[2]);
@@ -297,35 +304,37 @@ lstm_tc(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensor
       }
       c.h_out[bj] = h;
       if (c.c_next != nullptr) c.c_next[bj] = cc;
-      c.x1[(size_t)b * c.ld1 + j + e] = __float2bfloat16(h);
-      if (c.x2 != nullptr) c.x2[(size_t)b * c.ld2 + j + e] = __float2bfloat16(h);
+      c.x1[(size_t)b * c.ld1 + j + e] = from_f<T>(h);
+      if (c.x2 != nullptr) c.x2[(size_t)b * c.ld2 + j + e] = from_f<T>(h);
     }
   }
   if (c.pn != nullptr) {
     const int stride = gridDim.x * gridDim.y * blockDim.x;
     for (int i = (blockIdx.y * gridDim.x + blockIdx.x) * blockDim.x + threadIdx.x; i < B * c.P;
          i += stride)
-      c.pn_dst[(size_t)(i / c.P) * c.ldp + i % c.P] = __float2bfloat16(c.pn[i]);
+      c.pn_dst[(size_t)(i / c.P) * c.ldp + i % c.P] = from_f<T>(c.pn[i]);
   }
   cl.sync();  // the partial tiles stay until every CTA of the cluster has read them
 }
 
-// dst[b][k] = bf16(src[b][k]) for a (B, P) float32 block (row stride ld).
-__global__ void round_rows(const float* __restrict__ src, int B, int P,
-                           __nv_bfloat16* __restrict__ dst, int ld) {
+// dst[b][k] = T(src[b][k]) for a (B, P) float32 block (row stride ld).
+template <typename T>
+__global__ void round_rows(const float* __restrict__ src, int B, int P, T* __restrict__ dst,
+                           int ld) {
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < B * P; i += gridDim.x * blockDim.x)
-    dst[(size_t)(i / P) * ld + i % P] = __float2bfloat16(src[i]);
+    dst[(size_t)(i / P) * ld + i % P] = from_f<T>(src[i]);
 }
 
 struct FwdAtt {
   Dims d;
   const float *wq, *qpart, *locw, *ldw, *v, *mem, *pmem, *addmask, *zeros;
   float *w, *wcum, *ctx;
-  __nv_bfloat16 *xd, *xa;  // bf16 copies of ctx_t at its operand columns, or null
+  void *xd, *xa;  // copies of ctx_t in the 2-byte stream type T at its operand columns, or null
   int ldd, lda;
 };
 
 // Attention of row blockIdx.y at step t on a cluster of kNC CTAs.
+template <typename T>
 __global__ void __cluster_dims__(kNC, 1, 1) __launch_bounds__(kAttThreads)
 att_fwd(FwdAtt a, int t) {
   extern __shared__ __align__(16) float sm[];
@@ -395,8 +404,8 @@ att_fwd(FwdAtt a, int t) {
     for (int r = 0; r < kNC; ++r) acc += cl.map_shared_rank(s.cpart, r)[k];
     a.ctx[row * E + k] = acc;
     if (a.xd != nullptr) {
-      a.xd[(size_t)b * a.ldd + k] = __float2bfloat16(acc);
-      a.xa[(size_t)b * a.lda + k] = __float2bfloat16(acc);
+      static_cast<T*>(a.xd)[(size_t)b * a.ldd + k] = from_f<T>(acc);
+      static_cast<T*>(a.xa)[(size_t)b * a.lda + k] = from_f<T>(acc);
     }
   }
   cl.sync();
@@ -404,7 +413,7 @@ att_fwd(FwdAtt a, int t) {
 
 struct Scratch {
   float *part, *qpart;
-  __nv_bfloat16 *xa, *xd;  // (2, 64, kap) and (2, 64, kdp) bf16 operand matrices
+  void *xa, *xd;  // (2, 64, kap) and (2, 64, kdp) operand matrices in the 2-byte stream type
 };
 
 GraphCache graphs;  // the step loops of the last calls, as CUDA graphs
@@ -421,11 +430,15 @@ cudaError_t run(const Dims& d, const void* attn_w_, const float* attn_b, const v
   const T *m3 = static_cast<const T*>(m3_), *m4 = static_cast<const T*>(m4_);
   T* g_att = static_cast<T*>(g_att_);
   T* g_dec = static_cast<T*>(g_dec_);
-  constexpr bool kTc = sizeof(T) == 2;
+  constexpr bool kTc = is_tc<T>();
+  // the operand matrices, in T (used by the tensor-core streams only)
+  T* const xa = static_cast<T*>(sc.xa);
+  T* const xd = static_cast<T*>(sc.xd);
   const size_t att_smem = (size_t)AttSmem::fwd_floats(d) * sizeof(float);
   const size_t tc_smem = TcRing<4 * kTcUnits, kTcStages>::kSmemBytes;
-  cudaError_t err = smem_attr((const void*)att_fwd, att_smem);
-  if (err == cudaSuccess && kTc) err = smem_attr((const void*)lstm_tc, tc_smem);
+  cudaError_t err = smem_attr((const void*)att_fwd<T>, att_smem);
+  if constexpr (kTc)
+    if (err == cudaSuccess) err = smem_attr((const void*)lstm_tc<T>, tc_smem);
   if (err != cudaSuccess) return err;
   const int B = d.B, H = d.H, E = d.E, P = d.P, A = d.A;
   const size_t BH = (size_t)B * H;
@@ -433,14 +446,14 @@ cudaError_t run(const Dims& d, const void* attn_w_, const float* attn_b, const v
   const int kap = cdiv(Ka, kTileK) * kTileK, kdp = cdiv(Kd, kTileK) * kTileK;
   const size_t xa_n = (size_t)kRows * kap, xd_n = (size_t)kRows * kdp;
   CUtensorMap mxa, mxd, mwa, mwd;
-  if (kTc) {
+  if constexpr (kTc) {
     const uint64_t dxa[3] = {(uint64_t)kap, kRows, 2}, dxd[3] = {(uint64_t)kdp, kRows, 2};
     const uint64_t dwa[2] = {(uint64_t)H4, (uint64_t)Ka}, dwd[2] = {(uint64_t)H4, (uint64_t)Kd};
     const uint32_t bx[3] = {kTileK, kRows, 1}, bw[2] = {kTcUnits, kTileK};
-    if ((err = tensor_map(&mxa, sc.xa, 3, dxa, bx)) != cudaSuccess ||
-        (err = tensor_map(&mxd, sc.xd, 3, dxd, bx)) != cudaSuccess ||
-        (err = tensor_map(&mwa, attn_w, 2, dwa, bw)) != cudaSuccess ||
-        (err = tensor_map(&mwd, dec_w, 2, dwd, bw)) != cudaSuccess)
+    if ((err = tensor_map<T>(&mxa, xa, 3, dxa, bx)) != cudaSuccess ||
+        (err = tensor_map<T>(&mxd, xd, 3, dxd, bx)) != cudaSuccess ||
+        (err = tensor_map<T>(&mwa, attn_w, 2, dwa, bw)) != cudaSuccess ||
+        (err = tensor_map<T>(&mwd, dec_w, 2, dwd, bw)) != cudaSuccess)
       return err;
   }
   const dim3 tc_grid(cdiv(H, kTcUnits), kTcSplit), att_grid(kNC, B);
@@ -448,23 +461,23 @@ cudaError_t run(const Dims& d, const void* attn_w_, const float* attn_b, const v
   const int grid = H / kUnits, cells = (B * H + 255) / 256;
   auto chunk = [](int K) { return (K / kSplit + kBK - 1) / kBK * kBK; };
   auto enqueue = [&](cudaStream_t s) {
-    if (kTc) {
-      cudaMemsetAsync(sc.xa, 0, 2 * xa_n * sizeof(__nv_bfloat16), s);
-      cudaMemsetAsync(sc.xd, 0, 2 * xd_n * sizeof(__nv_bfloat16), s);
-      round_rows<<<cdiv(B * P, 256), 256, 0, s>>>(prenet, B, P, sc.xa, kap);
+    if constexpr (kTc) {
+      cudaMemsetAsync(xa, 0, 2 * xa_n * sizeof(T), s);
+      cudaMemsetAsync(xd, 0, 2 * xd_n * sizeof(T), s);
+      round_rows<T><<<cdiv(B * P, 256), 256, 0, s>>>(prenet, B, P, xa, kap);
     }
     for (int t = 0; t < d.T; ++t) {
       const size_t o = (size_t)t * BH;
       const bool first = t == 0, last = t + 1 == d.T;
       const int par = t & 1;
-      __nv_bfloat16 *xa_now = sc.xa + par * xa_n, *xa_next = sc.xa + (1 - par) * xa_n;
-      __nv_bfloat16 *xd_now = sc.xd + par * xd_n, *xd_next = sc.xd + (1 - par) * xd_n;
+      T *xa_now = xa + par * xa_n, *xa_next = xa + (1 - par) * xa_n;
+      T *xd_now = xd + par * xd_n, *xd_next = xd + (1 - par) * xd_n;
       if constexpr (kTc) {
-        const Cell ca{attn_b, c_att + o, last ? nullptr : c_att + o + BH, h_att + o,
+        const Cell<T> ca{attn_b, c_att + o, last ? nullptr : c_att + o + BH, h_att + o,
                       g_att + 4 * o, m1 ? m1 + o : nullptr, m2 ? m2 + o : nullptr,
                       xd_now, kdp, xa_next + P + E, kap,
                       last ? nullptr : prenet + (size_t)(t + 1) * B * P, xa_next, P, kap};
-        lstm_tc<<<tc_grid, kTcThreads, tc_smem, s>>>(mxa, mwa, par, Ka, H, B, ca);
+        lstm_tc<T><<<tc_grid, kTcThreads, tc_smem, s>>>(mxa, mwa, par, Ka, H, B, ca);
       } else {
         const Seg3 xa{{prenet + (size_t)t * B * P,
                        first ? fa.zeros : fa.ctx + (size_t)(t - 1) * B * E,
@@ -483,12 +496,12 @@ cudaError_t run(const Dims& d, const void* attn_w_, const float* attn_b, const v
       at.xa = kTc ? xa_next + P : nullptr;
       at.ldd = kdp;
       at.lda = kap;
-      att_fwd<<<att_grid, kAttThreads, att_smem, s>>>(at, t);
+      att_fwd<T><<<att_grid, kAttThreads, att_smem, s>>>(at, t);
       if constexpr (kTc) {
-        const Cell cd{dec_b, c_dec + o, last ? nullptr : c_dec + o + BH, h_dec + o,
+        const Cell<T> cd{dec_b, c_dec + o, last ? nullptr : c_dec + o + BH, h_dec + o,
                       g_dec + 4 * o, m3 ? m3 + o : nullptr, m4 ? m4 + o : nullptr,
                       xd_next + H + E, kdp, nullptr, 0, nullptr, nullptr, P, kap};
-        lstm_tc<<<tc_grid, kTcThreads, tc_smem, s>>>(mxd, mwd, par, Kd, H, B, cd);
+        lstm_tc<T><<<tc_grid, kTcThreads, tc_smem, s>>>(mxd, mwd, par, Kd, H, B, cd);
       } else {
         const Seg3 xd{{h_att + o, fa.ctx + (size_t)t * B * E, first ? fa.zeros : h_dec + o - BH},
                       {H, E, H}, {H, E, H}};
@@ -506,7 +519,8 @@ cudaError_t run(const Dims& d, const void* attn_w_, const float* attn_b, const v
 
 }  // namespace
 
-// dtype: 0 = float32 stream, 1 = bfloat16.  Shapes (row-major): attn_w
+// dtype: 0 = float32 stream, 1 = bfloat16, 2 = float16 (StreamType); any
+// other value returns cudaErrorInvalidValue.  Shapes (row-major): attn_w
 // (P+E+H, 4H), dec_w (2H+E, 4H) in the stream dtype; attn_b, dec_b (4H);
 // query_w (H, A); loc_w (K, 2, F); loc_dense_w (F, A); v (A); prenet
 // (T, B, P); memory (B, S, E); pmem (B, S, A); add_mask (B, S); masks m1..m4
@@ -516,8 +530,8 @@ cudaError_t run(const Dims& d, const void* attn_w_, const float* attn_b, const v
 // step, zeroed by the caller.  Work: wcum (B, S) and zeros (>= B*max(H,E,S))
 // zeroed; part (kSplit, B, 4H) float32 (float32 stream); qpart
 // (cdiv(H, kQChunk), B, A) float32; xa (2, 64, cdiv(P+E+H, 64) * 64) and xd
-// (2, 64, cdiv(2H+E, 64) * 64) bf16 (bf16 stream).  graph != 0 replays the
-// loop from a CUDA graph.  Returns a cudaError_t (0 on success).
+// (2, 64, cdiv(2H+E, 64) * 64) in the stream dtype (bf16 and f16 streams).
+// graph != 0 replays the loop from a CUDA graph.  Returns a cudaError_t (0 on success).
 extern "C" int t2v_teacher_fwd(
     int dtype, int T, int B, int S, int E, int H, int P, int A, int F, int K, int graph,
     const void* attn_w, const float* attn_b, const void* dec_w, const float* dec_b,
@@ -533,19 +547,23 @@ extern "C" int t2v_teacher_fwd(
   const Dims d{T, B, S, E, H, P, A, F, K};
   const FwdAtt fa{d, query_w, qpart, loc_w, loc_dense_w, v, memory, pmem, add_mask, zeros,
                   w, wcum, ctx, nullptr, nullptr, 0, 0};
-  const Scratch sc{part, qpart, static_cast<__nv_bfloat16*>(xa), static_cast<__nv_bfloat16*>(xd)};
+  const Scratch sc{part, qpart, xa, xd};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const GraphKey key =
       make_key(dtype, T, B, S, E, H, P, A, F, K, attn_w, attn_b, dec_w, dec_b, query_w, loc_w,
                loc_dense_w, v, prenet, memory, pmem, add_mask, m1, m2, m3, m4, h_dec, ctx, w,
                g_att, g_dec, c_att, c_dec, h_att, wcum, zeros, part, qpart, xa, xd);
-  const cudaError_t err =
-      dtype == 1 ? run<__nv_bfloat16>(d, attn_w, attn_b, dec_w, dec_b, fa, prenet, m1, m2, m3,
-                                      m4, h_dec, h_att, g_att, g_dec, c_att, c_dec, sc,
-                                      graph != 0, key, st)
-                 : run<float>(d, attn_w, attn_b, dec_w, dec_b, fa, prenet, m1, m2, m3, m4, h_dec,
-                              h_att, g_att, g_dec, c_att, c_dec, sc, graph != 0, key, st);
-  return (int)err;
+  auto go = [&](auto tag) {  // tag: a null T*
+    using T = std::remove_pointer_t<decltype(tag)>;
+    return run<T>(d, attn_w, attn_b, dec_w, dec_b, fa, prenet, m1, m2, m3, m4, h_dec, h_att,
+                  g_att, g_dec, c_att, c_dec, sc, graph != 0, key, st);
+  };
+  switch (dtype) {
+    case kF32: return (int)go(static_cast<float*>(nullptr));
+    case kBF16: return (int)go(static_cast<__nv_bfloat16*>(nullptr));
+    case kF16: return (int)go(static_cast<__half*>(nullptr));
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Step-loop graphs instantiated so far by t2v_teacher_fwd (replays and

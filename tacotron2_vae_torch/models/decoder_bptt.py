@@ -44,9 +44,10 @@ def loc_conv_weight_grad(w_prev, w_cum, dloc, K: int):
 def weight_grad(x, dg):
     """x^T dg over the flattened (T*B) rows, both in the stream dtype, with
     exact products and float32 sums and result (the JAX package's ``_cdot``
-    with ``preferred_element_type=float32``): on the card a bf16 product
-    with a float32 output, elsewhere a float32 product of the same values."""
-    if x.is_cuda and x.dtype == torch.bfloat16:
+    with ``preferred_element_type=float32``): on the card a bf16 or float16
+    product with a float32 output, elsewhere a float32 product of the same
+    values."""
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
         return torch.mm(x.t(), dg, out_dtype=torch.float32)
     return x.float().t() @ dg.float()
 

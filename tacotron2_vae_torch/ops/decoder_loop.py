@@ -27,6 +27,8 @@ from . import _build
 MAX_ROWS = 8          # rows one launch serves (the serving micro-batch cap)
 CHECK_EVERY = 8       # steps between host reads of the all-finished flag
 CLUSTER = 8           # CTAs of the attention kernel's cluster per row (kNC in the source)
+# The weight dtypes' codes in ``t2v_decode_loop`` (the C side refuses any other)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _F32_MIN = float(np.finfo(np.float32).min)
 
 # --------------------------------------------------------- dropout hash
@@ -231,8 +233,8 @@ def _run_kernel(kw, memory, pmem, mask, *, max_steps, gate_threshold, seed,
     B, S, E = memory.shape
     if not 1 <= B <= MAX_ROWS:
         raise ValueError(f"decode_loop serves 1..{MAX_ROWS} rows, got B={B}")
-    if dt not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"decode_loop weights must be float32 or bfloat16, got {dt}")
+    if dt not in DTYPES:
+        raise ValueError(f"decode_loop weights must be one of {list(DTYPES)}, got {dt}")
     for k, v in kw.items():
         if v.device != dev or not v.is_contiguous():
             raise ValueError(f"packed weight {k!r} must be contiguous on {dev}")
@@ -268,7 +270,7 @@ def _run_kernel(kw, memory, pmem, mask, *, max_steps, gate_threshold, seed,
     mel_buf, gate_buf, align_buf = z(max_steps, B, n_out), z(max_steps, B), z(max_steps, B, S)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _kernel_fn()(
-        1 if dt == torch.bfloat16 else 0, B, S, E, Ha, Hd, P, A, F, KL, n_out,
+        DTYPES[dt], B, S, E, Ha, Hd, P, A, F, KL, n_out,
         *(_ptr(kw[k]) for k in ("w1", "w2", "att_w", "att_b", "dec_w", "dec_b",
                                 "wq", "locw", "ldw", "v", "pg_w", "pg_b")),
         _ptr(mem), _ptr(pm), _ptr(add), *(_ptr(w) for w in work), _ptr(flags),

@@ -4,10 +4,10 @@
 n//hop + 1) log-mel: reflect pad n_fft/2, Hann-windowed 1024/256 frames,
 real FFT in full fp32, magnitude, slaney mel filterbank, log(max(x, 1e-5)).
 On a CUDA tensor it launches the kernel; on a CPU tensor it runs
-``mel_spectrogram_plain`` (the DFT-basis product of the TPU kernel).  It
-counts its kernel launches in ``mel_spectrogram_fused.launches``.  It is
-safe to call from several threads (the loader's workers); it keeps no
-output buffer between calls.
+``mel_spectrogram_plain`` (the DFT-basis product of the TPU kernel, its
+sums in float64).  It counts its kernel launches in
+``mel_spectrogram_fused.launches``.  It is safe to call from several
+threads (the loader's workers); it keeps no output buffer between calls.
 """
 
 from __future__ import annotations
@@ -33,9 +33,12 @@ def mel_spectrogram_plain(wav, n_fft=1024, hop=256, win_length=1024, n_mels=80,
     tab = device_tables(str(wav.device), n_fft, win_length, n_mels, sampling_rate, fmin, fmax)
     y = torch.nn.functional.pad(wav.float()[None, None], (n_fft // 2, n_fft // 2),
                                 mode="reflect")[0, 0]
-    frames = y.unfold(0, n_fft, hop) * tab.window      # (n_frames, n_fft)
-    re, im = frames @ tab.cos_b, frames @ tab.sin_b
-    mag = torch.sqrt(re * re + im * im)                 # (n_frames, n_freq)
+    # the DFT sums in float64: in float32 their rounding (2-4e-5 of a
+    # low-energy band's log) changes with the BLAS's split of the sums, and
+    # the twin would move by that much between machines and thread counts
+    frames = (y.unfold(0, n_fft, hop) * tab.window).double()   # (n_frames, n_fft)
+    re, im = frames @ tab.cos_b.double(), frames @ tab.sin_b.double()
+    mag = torch.sqrt(re * re + im * im).float()         # (n_frames, n_freq)
     mel = mag @ tab.fb.t()
     return torch.log(torch.clamp(mel, min=1e-5)).t()[None]
 

@@ -19,7 +19,7 @@ of ``decoder_bptt._fwd_impl`` and of the recompute path of
 ``decoder_bptt._bwd_rule``.  Launches are counted in ``.launches``.
 
 Weights (``pack``): ``attn_w`` (P+E+H, 4H) and ``dec_w`` (H+E+H, 4H) in the
-stream dtype (float32 or bfloat16), columns gate-major (i, f, g, o); biases,
+stream dtype (float32, bfloat16 or float16), columns gate-major (i, f, g, o); biases,
 ``query_w`` (H, A), ``loc_w`` (K, 2, F), ``loc_dense_w`` (F, A) and ``v``
 (A,) in float32.  Casting points follow the XLA scan: only the LSTM product
 operands are rounded to the stream dtype; the gate residuals, ``dg_*`` and
@@ -37,6 +37,10 @@ from . import _build
 
 MAX_ROWS = 64          # batch rows one launch serves (one row tile)
 _F32 = ("attn_b", "dec_b", "query_w", "loc_w", "loc_dense_w", "v")
+# The stream dtypes' codes in the C entry points (StreamType in
+# csrc/teacher_common.cuh; the C side refuses any other value).  bfloat16
+# and float16 take the tensor-core products.
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def pack(params: dict, dtype) -> dict:
@@ -228,8 +232,8 @@ def _dims(w, memory, pmem):
     P = w["attn_w"].shape[0] - E - H
     K, _, Fn = w["loc_w"].shape
     A = w["query_w"].shape[1]
-    if w["attn_w"].dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"stream dtype must be float32 or bfloat16, got {w['attn_w'].dtype}")
+    if w["attn_w"].dtype not in DTYPES:
+        raise ValueError(f"stream dtype must be one of {list(DTYPES)}, got {w['attn_w'].dtype}")
     if not 1 <= B <= MAX_ROWS:
         raise ValueError(f"the recurrence kernels take 1..{MAX_ROWS} rows, got B={B}")
     if K % 2 == 0:
@@ -260,7 +264,7 @@ def _masks(masks, T, B, H, sdt):
 SPLIT = 4       # K-split of the float32 products: kSplit in csrc/teacher_common.cuh
 CLUSTER = 4     # attention CTAs per batch row: kNC
 Q_CHUNK = 64    # rows of H per query-product partial: kQChunk
-TILE_K = 64     # reduction tile of the bf16 wgmma products: kTileK
+TILE_K = 64     # reduction tile of the 2-byte wgmma products: kTileK
 USE_GRAPH = True  # replay each call's step loop from a CUDA graph (False: the profiler's view)
 GRAPHS = 4        # sets of sizes whose graph is kept, per direction (kGraphs)
 
@@ -269,16 +273,16 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def fwd_scratch(T, B, S, E, H, P, A, bf16):
-    """Float32 and bf16 element counts of K3's work buffers (beside its
-    outputs): ``part`` the float32 products' K-split partials (float32
-    stream only), ``qpart`` the query-product partials, ``xa``/``xd`` the
-    bf16 LSTM operand matrices [prenet|ctx|h_att] and [h_att|ctx|h_dec],
-    two step parities of 64 rows, rows padded to the wgmma reduction tile
-    (bf16 stream only)."""
+def fwd_scratch(T, B, S, E, H, P, A, tc):
+    """Element counts of K3's work buffers (beside its outputs): ``part``
+    the float32 products' K-split partials (float32 stream only),
+    ``qpart`` the float32 query-product partials, ``xa``/``xd`` the LSTM
+    operand matrices [prenet|ctx|h_att] and [h_att|ctx|h_dec] in the stream
+    dtype, two step parities of 64 rows, rows padded to the wgmma reduction
+    tile (``tc``: the bf16 and float16 streams only)."""
     kap, kdp = cdiv(P + E + H, TILE_K) * TILE_K, cdiv(2 * H + E, TILE_K) * TILE_K
-    return {"part": 0 if bf16 else SPLIT * B * 4 * H, "qpart": cdiv(H, Q_CHUNK) * B * A,
-            "xa": 2 * MAX_ROWS * kap if bf16 else 0, "xd": 2 * MAX_ROWS * kdp if bf16 else 0}
+    return {"part": 0 if tc else SPLIT * B * 4 * H, "qpart": cdiv(H, Q_CHUNK) * B * A,
+            "xa": 2 * MAX_ROWS * kap if tc else 0, "xd": 2 * MAX_ROWS * kdp if tc else 0}
 
 
 def bwd_work(B, S, E, H, P, A, Fn):
@@ -308,12 +312,12 @@ def _run_fwd(w, prenet_seq, memory, pmem, add_mask, masks):
     c_att, c_dec = torch.zeros(T, B, H, **f32), torch.zeros(T, B, H, **f32)
     wcum = torch.zeros(B, S, **f32)
     zeros = torch.zeros(B * max(H, E, S), **f32)
-    n = fwd_scratch(T, B, S, E, H, P, A, sdt == torch.bfloat16)
+    n = fwd_scratch(T, B, S, E, H, P, A, sdt != torch.float32)
     part, qpart = torch.empty(n["part"], **f32), torch.empty(n["qpart"], **f32)
-    xa = torch.empty(n["xa"], dtype=torch.bfloat16, device=dev)
-    xd = torch.empty(n["xd"], dtype=torch.bfloat16, device=dev)
+    xa = torch.empty(n["xa"], dtype=sdt, device=dev)
+    xd = torch.empty(n["xd"], dtype=sdt, device=dev)
     err = _fn("teacher_fwd", "t2v_teacher_fwd", 11, 31)(
-        int(sdt == torch.bfloat16), T, B, S, E, H, P, A, Fn, K, int(USE_GRAPH),
+        DTYPES[sdt], T, B, S, E, H, P, A, Fn, K, int(USE_GRAPH),
         *(_ptr(w[k]) for k in ("attn_w", "attn_b", "dec_w", "dec_b", "query_w", "loc_w",
                                "loc_dense_w", "v")),
         _ptr(prenet_seq), _ptr(memory), _ptr(pmem), _ptr(add_mask), *(_ptr(m) for m in masks),
@@ -350,11 +354,11 @@ def _run_bwd(w, memory, pmem, masks, dys, ys, resids, w_cum_prev):
     dpmem = torch.zeros(B, S, A, **f32)
     sizes = bwd_work(B, S, E, H, P, A, Fn)
     work = torch.zeros(sum(sizes), **f32).split(sizes)
-    bf16 = sdt == torch.bfloat16
-    part = torch.empty(0 if bf16 else SPLIT * B * max(2 * H + E, P + E + H), **f32)
-    qpart = torch.empty(fwd_scratch(T, B, S, E, H, P, A, bf16)["qpart"], **f32)
+    tc = sdt != torch.float32
+    part = torch.empty(0 if tc else SPLIT * B * max(2 * H + E, P + E + H), **f32)
+    qpart = torch.empty(fwd_scratch(T, B, S, E, H, P, A, tc)["qpart"], **f32)
     err = _fn("teacher_bwd", "t2v_teacher_bwd", 11, 45)(
-        int(bf16), T, B, S, E, H, P, A, Fn, K, int(USE_GRAPH),
+        DTYPES[sdt], T, B, S, E, H, P, A, Fn, K, int(USE_GRAPH),
         *(_ptr(w[k]) for k in ("attn_w", "dec_w", "query_w", "loc_w", "loc_dense_w", "v")),
         _ptr(memory), _ptr(pmem), *(_ptr(m) for m in masks),
         *(_ptr(x) for x in named.values()),

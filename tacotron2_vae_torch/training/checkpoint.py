@@ -3,7 +3,10 @@
 The payload of the JAX package's ``training/checkpoint.py`` (reference
 train.py:92-119): iteration, learning rate, the model's ``state_dict``
 (parameters and batchnorm running statistics, reference names) and the
-optimizer state, at ``output_dir/checkpoint_{iteration}``.  Orbax
+optimizer state, at ``output_dir/checkpoint_{iteration}``; under
+``fp16_run`` also the loss scaler's (scale, count) (JAX
+``checkpoint.py:36-75``), restored on resume, while a checkpoint saved
+without it keeps the fresh scaler of the state it is loaded into.  Orbax
 directories written by the JAX trainer need JAX and are not read.  In a
 data-parallel run rank 0 writes and every rank then meets at a barrier
 (``training.train``); every rank loads on resume, onto its own card.
@@ -15,6 +18,7 @@ import os
 
 import torch
 
+from .loss_scaler import ScalerState
 from .train_state import TrainState
 
 
@@ -22,9 +26,11 @@ def save_checkpoint(ts: TrainState, learning_rate: float, output_dir: str,
                     iteration: int | None = None) -> str:
     iteration = ts.step if iteration is None else iteration
     path = os.path.abspath(os.path.join(output_dir, f"checkpoint_{iteration}"))
-    torch.save({"iteration": int(iteration), "learning_rate": float(learning_rate),
-                "state_dict": ts.model.state_dict(),
-                "optimizer": ts.optimizer.state_dict()}, path)
+    payload = {"iteration": int(iteration), "learning_rate": float(learning_rate),
+               "state_dict": ts.model.state_dict(), "optimizer": ts.optimizer.state_dict()}
+    if ts.scaler is not None:
+        payload["scaler"] = [t.detach().cpu() for t in ts.scaler]
+    torch.save(payload, path)
     return path
 
 
@@ -33,12 +39,16 @@ def _load(path: str, ts: TrainState) -> dict:
 
 
 def load_checkpoint(path: str, ts: TrainState) -> tuple[TrainState, int, float]:
-    """Full resume: weights, optimizer and iteration (reference
-    train.py:100-110); ``ts.step`` becomes the saved iteration."""
+    """Full resume: weights, optimizer, iteration (reference
+    train.py:100-110) and, when both the checkpoint and ``ts`` have one, the
+    loss scaler; ``ts.step`` becomes the saved iteration."""
     payload = _load(path, ts)
     ts.model.load_state_dict(payload["state_dict"])
     ts.optimizer.load_state_dict(payload["optimizer"])
     ts.step = int(payload["iteration"])
+    if ts.scaler is not None and payload.get("scaler") is not None:
+        ts.scaler = ScalerState(*(saved.to(ts.device, old.dtype)
+                                  for saved, old in zip(payload["scaler"], ts.scaler)))
     return ts, ts.step, float(payload["learning_rate"])
 
 

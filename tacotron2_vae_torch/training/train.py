@@ -24,8 +24,10 @@ Under torchrun each process trains one data-parallel rank
 (``parallel.mesh``): its shard of every epoch, a batch of ``batch_size //
 world``, global batchnorm statistics and random draws, one gradient
 all-reduce a step; rank 0 prints, logs and writes checkpoints.  Runs on
-the card unless ``--device cpu``.  TensorBoard is not ported: the logs are
-CSV files.
+the card unless ``--device cpu``.  The logs are TensorBoard events (with
+tensorboardX) and CSV files (``training.logger``).  ``--hparams
+fp16_run=True`` trains in float16 with the dynamic loss scaler; the
+scaler is checkpointed and resumed with the rest.
 """
 
 from __future__ import annotations
@@ -115,19 +117,22 @@ def device_copier(device):
 
 
 def validate(eval_step, ts, val_loader, generator):
-    """Mean total loss over the validation set and the mean recon / KL.
-    The prenet's dropout stays on (reference model.py:101) and draws fresh
-    noise for every batch from ``generator``."""
+    """Mean total loss over the validation set, the mean recon / KL, and
+    the last (batch, outputs), which the logger plots.  The prenet's
+    dropout stays on (reference model.py:101) and draws fresh noise for
+    every batch from ``generator``."""
     losses, recons, kls = [], [], []
+    last = None
     for batch in val_loader.epoch(0):
-        total, aux, _ = eval_step(ts, batch, generator)
+        total, aux, out = eval_step(ts, batch, generator)
         losses.append(float(total))
         recons.append(float(aux["recon_loss"]))
         kls.append(float(aux["kl_loss"]))
+        last = (batch, out)
     if not losses:
-        return float("nan"), {"recon_loss": float("nan"), "kl_loss": float("nan")}
+        return float("nan"), {"recon_loss": float("nan"), "kl_loss": float("nan")}, last
     return float(np.mean(losses)), {"recon_loss": float(np.mean(recons)),
-                                    "kl_loss": float(np.mean(kls))}
+                                    "kl_loss": float(np.mean(kls))}, last
 
 
 # the columns of a queued step's metrics, fetched a window at a time
@@ -231,11 +236,14 @@ def train(output_directory, log_directory, checkpoint_path, warm_start, hp, devi
             if iteration % hp.iters_per_checkpoint == 0 and iteration > 0:
                 drain_all()
                 # every rank validates, so the ranks' generators stay alike
-                val_loss, val_aux = validate(eval_step, ts, val_loader, generator)
+                val_loss, val_aux, last = validate(eval_step, ts, val_loader, generator)
                 if lead:
                     print(f"Validation loss {iteration}: {val_loss:.6f}", flush=True)
-                    if logger:
-                        logger.log_validation(val_loss, iteration, val_aux)
+                    if logger and last is not None:
+                        vbatch, vout = last
+                        logger.log_validation(val_loss, ts.model.state_dict(), vout,
+                                              (vbatch.mel, vbatch.gate), iteration,
+                                              components=val_aux)
                     ckpt = save_checkpoint(ts, learning_rate, output_directory, iteration)
                     print(f"Saved checkpoint: {ckpt}", flush=True)
                 mesh.barrier(dp)
@@ -243,6 +251,8 @@ def train(output_directory, log_directory, checkpoint_path, warm_start, hp, devi
                 last_log_t = time.perf_counter()
             iteration += 1
     drain_all()
+    if logger:
+        logger.close()
     return ts, iteration
 
 

@@ -20,7 +20,15 @@ statistics (snapshotted before the forward) as they were; the iteration
 count still advances.  In a data-parallel run (``parallel.mesh``) the step
 computes what one process computes on the global batch, and the skip is
 decided from the all-reduced loss and norm, alike on every rank.
-``fp16_run`` (the dynamic loss scaler) is not ported.
+
+``fp16_run`` (JAX ``train_state.py:54-211``, reference
+fp16_optimizer.py:51-383) computes in float16 (``compute_dtype`` and the
+recurrence's stream type) and trains through a loss scaler
+(``training/loss_scaler.py``): the loss is back-propagated times the
+scale, the gradients are divided by it before their global norm, and a
+step whose loss or norm is not finite is skipped and halves the scale.
+The scaler's state is on the device (``TrainState.scaler``), so the step
+still never waits for the card.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import torch
 from ..models.tacotron2 import Tacotron2, init_weights
 from ..parallel import mesh
 from .loss import tacotron2_vae_loss
+from .loss_scaler import DynamicLossScaler, ScalerState
 
 AUX_KEYS = ("recon_loss", "mel_loss", "gate_loss", "kl_loss")
 
@@ -52,6 +61,7 @@ class TrainState:
     model: Tacotron2
     optimizer: torch.optim.Optimizer
     step: int = 0
+    scaler: ScalerState | None = None  # fp16_run only: the loss scale and its count
 
     @property
     def device(self) -> torch.device:
@@ -64,14 +74,36 @@ def make_optimizer(model, hp, learning_rate=None) -> torch.optim.Adam:
                             weight_decay=hp.weight_decay, fused=True)
 
 
+def make_loss_scaler(hp) -> DynamicLossScaler | None:
+    """fp16_run's scaler (reference loss_scaler.py): dynamic by default
+    (init 2^32, /2 on overflow with floor 1, x2 every 1000 clean steps);
+    ``dynamic_loss_scaling=False`` is the static scale of 1 (reference
+    fp16_optimizer.py default static_loss_scale=1.0), expressed as the JAX
+    package expresses it: a dynamic scaler whose scale never moves off its
+    floor."""
+    if not hp.fp16_run:
+        return None
+    if hp.dynamic_loss_scaling:
+        return DynamicLossScaler()
+    return DynamicLossScaler(init_scale=1.0, scale_factor=1.0, scale_window=2 ** 31)
+
+
+def run_hparams(hp):
+    """The hparams a run computes with: ``fp16_run`` means float16 compute."""
+    return hp.replace(compute_dtype="float16") if hp.fp16_run else hp
+
+
 def create_train_state(hp, device=None, learning_rate=None, seed=None) -> TrainState:
     """A model with random weights from ``seed`` (default ``hp.seed``) on
-    ``device`` (default the card) and a fresh optimizer."""
-    if hp.fp16_run:
-        raise NotImplementedError("fp16_run (dynamic loss scaling) is not ported yet")
+    ``device`` (default the card), a fresh optimizer and, under
+    ``fp16_run``, a fresh loss scaler; the model computes in float16 then."""
+    hp = run_hparams(hp)
+    dev = resolve_device(device)
     gen = torch.Generator().manual_seed(hp.seed if seed is None else seed)
-    model = init_weights(Tacotron2(hp), gen).to(resolve_device(device))
-    return TrainState(model, make_optimizer(model, hp, learning_rate))
+    model = init_weights(Tacotron2(hp), gen).to(dev)
+    scaler = make_loss_scaler(hp)
+    return TrainState(model, make_optimizer(model, hp, learning_rate),
+                      scaler=scaler.init(dev) if scaler is not None else None)
 
 
 def batch_to_device(batch, device) -> dict:
@@ -153,14 +185,21 @@ def make_train_step(hp, dp: mesh.DataParallel | None = None):
     ``dp`` (world ``w``) the same rule spans the ranks: each back-propagates
     ``recon + kl_weight * w * a * kl`` of its rows, the gradients and the
     metrics are summed over the ranks in one all-reduce, and the gradient
-    is divided by ``w * a``; the metrics are those of the global batch."""
-    if hp.fp16_run:
-        raise NotImplementedError("fp16_run (dynamic loss scaling) is not ported yet")
+    is divided by ``w * a``; the metrics are those of the global batch.
+
+    Under ``fp16_run`` each rank back-propagates that loss times the
+    scale, the gradients are divided by the scale before their norm (JAX
+    ``train_state.py:177-183``: a norm of the scaled gradients can overflow
+    float32 where the unscaled one would not, and skip a sound step), the
+    scaler updates on the device with the step's overflow flag, and the
+    metrics add ``loss_scale``, the scale the step used."""
+    scaler = make_loss_scaler(hp)
     accum = max(1, int(getattr(hp, "grad_accum_steps", 1)))
     world = dp.world if dp is not None else 1
 
     def train_step(ts: TrainState, batch, generator=None):
         model, opt = ts.model, ts.optimizer
+        scale = ts.scaler.scale if scaler is not None else None
         if not isinstance(batch, dict):
             batch = batch_to_device(batch, ts.device)
         buffers = _float_buffers(model)
@@ -172,7 +211,8 @@ def make_train_step(hp, dp: mesh.DataParallel | None = None):
                 out = model(micro, train=True, generator=generator)
                 _, aux = tacotron2_vae_loss(out, micro["mel"], micro["gate"], ts.step, hp)
                 kl_weight = aux["kl_weight"]
-                (aux["recon_loss"] + kl_weight * (accum * world) * aux["kl_loss"]).backward()
+                loss = aux["recon_loss"] + kl_weight * (accum * world) * aux["kl_loss"]
+                (loss if scale is None else loss * scale).backward()
                 part = torch.stack([aux[k].detach() for k in AUX_KEYS])
                 sums = part if sums is None else sums + part
         params = list(model.parameters())
@@ -186,6 +226,11 @@ def make_train_step(hp, dp: mesh.DataParallel | None = None):
             torch._foreach_div_(grads, world * accum)
         elif accum > 1:
             torch._foreach_div_(grads, accum)
+        if scale is not None:
+            # Eager PyTorch stores each gradient once, so the overflow check
+            # (the norm below) and the optimizer read the same values: what
+            # JAX's optimization_barrier ensures at train_state.py:178-183.
+            torch._foreach_div_(grads, scale)
         # recon, mel and gate are means of the ranks' and micro-batches'
         # means; the KL is a sum over the batch
         n = world * accum
@@ -200,6 +245,9 @@ def make_train_step(hp, dp: mesh.DataParallel | None = None):
         metrics = {"loss": total.detach(), "grad_norm": grad_norm, "updated": ok,
                    "kl_weight": kl_weight}
         metrics.update(aux)
+        if scaler is not None:
+            ts.scaler = scaler.update(ts.scaler, ~ok)
+            metrics["loss_scale"] = scale
         return metrics
 
     return train_step
@@ -209,7 +257,8 @@ def make_eval_step(hp):
     """``eval_step(ts, batch, generator) -> (total, aux, out)``: eval-mode
     forward and loss (reference train.py:122-147): running batchnorm
     statistics, no dropout or VAE sampling, but the prenet's dropout stays
-    on as in the reference's eval (model.py:101)."""
+    on as in the reference's eval (model.py:101).  The model computes in
+    the type it was made with (float16 under ``fp16_run``)."""
 
     @torch.no_grad()
     def eval_step(ts: TrainState, batch, generator=None):

@@ -1,1 +1,1 @@
-"""Utilities: profiling."""
+"""Utilities: profiling, plotting."""

@@ -17,11 +17,13 @@ n_fft/2 + 1) and at n_fft 512, 1024 and 2048; two calls of K1 and of K2 bit
 for bit alike.
 Tolerances: K1 per
 output, over the first steps and the whole run, by ``chip_smoke.k1_compare``
-(f32: sum order only; bf16: the same casting points, sum order flips a
-rounding now and then, and the flip feeds back); K2 atol 1e-4 as
+(f32: sum order only; bf16 and float16: the same casting points, sum order
+flips a rounding now and then, and the flip feeds back); K1, K3 and K4
+take float16 streams as they take bf16 ones, and refuse a dtype code the
+C side does not know; K2 atol 1e-4 as
 tests/test_pallas_stft.py:36, against the twin and against the function in
-float64 (the twin's own fp32 DFT is 1.2e-4 off float64 at n_fft 512 on the
-CPU, so the sizes other than 1024 are held to float64 alone); K3 and K4, outputs and every gradient of the
+float64 (the sizes other than 1024 against float64 alone); K3 and K4,
+outputs and every gradient of the
 recurrence, by ``chip_smoke.k34_check`` and its limits ``K34_TOL``, at
 widths whose LSTM input sizes (P+E+H = 176, 2H+E = 212) are not multiples
 of the 64-deep wgmma tiles and whose 4H = 288 is not a multiple of the
@@ -91,7 +93,7 @@ def _decode_check(device, dtype, B, S, lengths):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S", [(3, 16), (4, 80)], ids=["B3_S16", "B4_S80"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_decode_loop_kernel_matches_twin_on_card(cuda_device, dtype, B, S):
     _decode_check(cuda_device, dtype, B, S, [S, S - 5, S - 9, S // 2][:B])
 
@@ -99,7 +101,7 @@ def test_decode_loop_kernel_matches_twin_on_card(cuda_device, dtype, B, S):
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [3, 13, 70])
 @pytest.mark.parametrize("B", [1, 8])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_decode_loop_attention_cluster_splits_on_card(cuda_device, dtype, B, S):
     """S over the cluster's CTAs in chunks of ceil(S / 8): 3 leaves five CTAs
     no position, 13 leaves the last one none; every row masked to its own
@@ -108,7 +110,7 @@ def test_decode_loop_attention_cluster_splits_on_card(cuda_device, dtype, B, S):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_decode_loop_kernel_is_deterministic_on_card(cuda_device, dtype):
     """Two K1 calls give the same bits: the softmax sums and the context
     partials have one owner and a fixed order (no float atomics)."""
@@ -183,7 +185,7 @@ RECURRENCE_CASES = [(5, 13, 9, (13, 12, 9, 5, 1)), (64, 70, 6, None), (1, 5, 7, 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,T,lengths", RECURRENCE_CASES,
                          ids=["B5_S13", "B64_S70", "B1_S5", "B63_S70"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_recurrence_kernels_match_twins_on_card(cuda_device, dtype, B, S, T, lengths):
     hp = create_hparams(ODD)
     model = init_weights(Tacotron2(hp), torch.Generator().manual_seed(0))
@@ -194,7 +196,7 @@ def test_recurrence_kernels_match_twins_on_card(cuda_device, dtype, B, S, T, len
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_recurrence_backward_kernel_is_deterministic_on_card(cuda_device, dtype):
     """Two K4 calls on the same inputs give the same bits: every cross-row
     and cross-CTA sum has one owner and a fixed order (no float atomics)."""
@@ -217,7 +219,7 @@ def test_recurrence_backward_kernel_is_deterministic_on_card(cuda_device, dtype)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_recurrence_graph_update_reads_new_pointers_on_card(cuda_device, dtype, monkeypatch):
     """A K3/K4 call at sizes seen before but on new tensors updates the
     cached graph in place (no instantiation), and the updated graph reads
@@ -251,6 +253,42 @@ def test_recurrence_graph_update_reads_new_pointers_on_card(cuda_device, dtype, 
     assert not torch.equal(first[0], second[0])
     for a, b in zip(second, streamed):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_weight_grad_float16_product_keeps_float32_sums(cuda_device):
+    from tacotron2_vae_torch.models.decoder_bptt import weight_grad
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(4096, 176, generator=g, device=cuda_device).half()
+    dg = torch.randn(4096, 288, generator=g, device=cuda_device).half()
+    got = weight_grad(x, dg)
+    want = x.double().t() @ dg.double()
+    assert got.dtype == torch.float32
+    assert float((got.double() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["teacher_fwd", "teacher_bwd", "decode_loop"])
+def test_kernels_refuse_an_unknown_dtype_code_on_card(cuda_device, entry):
+    """The C entry points return cudaErrorInvalidValue (1) for a dtype code
+    outside their enum, before they touch any pointer."""
+    import ctypes
+
+    from tacotron2_vae_torch.ops import teacher_fwd as tf
+
+    code = max(tf.DTYPES.values()) + 1
+    assert code == max(dl.DTYPES.values()) + 1
+    null = ctypes.c_void_p(0)
+    if entry == "decode_loop":
+        fn = dl._kernel_fn()
+        ints = (code, 1, 16, 64, 64, 64, 32, 32, 8, 31, 80)
+        err = fn(*ints, *([null] * 27), 4, ctypes.c_float(0.5), 0, 0, 8, null)
+    else:
+        fn = tf._fn(entry, f"t2v_{entry}", 11, 31 if entry == "teacher_fwd" else 45)
+        err = fn(code, 3, 1, 16, 64, 64, 32, 32, 8, 31, 0,
+                 *([null] * (31 if entry == "teacher_fwd" else 45)))
+    assert err == 1
 
 
 @pytest.mark.cuda

@@ -5,17 +5,20 @@ constants that ``csrc/teacher_common.cuh`` defines for the device code; a
 buffer sized with a stale constant would be overrun on the card, where no
 CPU test reaches.  These tests hold the Python constants to the header and
 check the sizes at the full-width defaults and at the odd widths of the
-card tests (``tests/test_torch_port_cuda.py::ODD``).
+card tests (``tests/test_torch_port_cuda.py::ODD``), and the wrappers'
+stream dtype codes (K3/K4's and K1's) to the sources' dispatch.
 """
 
 import os
 import re
 
 import pytest
+import torch
 
 from tacotron2_vae_torch.ops import teacher_fwd as tf
 
-HEADER = os.path.join(os.path.dirname(tf.__file__), os.pardir, "csrc", "teacher_common.cuh")
+CSRC = os.path.join(os.path.dirname(tf.__file__), os.pardir, "csrc")
+HEADER = os.path.join(CSRC, "teacher_common.cuh")
 
 
 def _header_constants():
@@ -67,3 +70,35 @@ def test_backward_work_sizes_follow_the_argument_order():
 @pytest.mark.parametrize("a,b,want", [(0, 4, 0), (1, 4, 1), (128, 64, 2), (176, 64, 3)])
 def test_cdiv(a, b, want):
     assert tf.cdiv(a, b) == want
+
+
+def _source(name):
+    with open(os.path.join(CSRC, name)) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("module,source", [("teacher_fwd", "teacher_common.cuh"),
+                                           ("decoder_loop", "decoder_loop.cu")],
+                         ids=["K3_K4", "K1"])
+def test_dtype_codes_match_the_kernel_sources(module, source):
+    """The wrappers' stream dtype codes are the C side's: K3/K4's
+    ``StreamType`` enum, K1's dispatch ``switch``; float16 has a code of its
+    own, so it cannot be read as another type."""
+    import tacotron2_vae_torch.ops.decoder_loop as dl
+
+    dtypes = (tf if module == "teacher_fwd" else dl).DTYPES
+    text = _source(source)
+    if module == "teacher_fwd":
+        enum = re.search(r"enum StreamType \{([^}]*)\}", text).group(1)
+        codes = {name: int(v) for name, v in re.findall(r"(k\w+) = (\d+)", enum)}
+        assert codes == {"kF32": 0, "kBF16": 1, "kF16": 2}
+        want = {torch.float32: codes["kF32"], torch.bfloat16: codes["kBF16"],
+                torch.float16: codes["kF16"]}
+    else:
+        pattern = r"case (\d+): return \(int\)run_b<(\w+)>"
+        cases = {t: int(c) for c, t in re.findall(pattern, text)}
+        want = {torch.float32: cases["float"], torch.bfloat16: cases["__nv_bfloat16"],
+                torch.float16: cases["__half"]}
+    assert dtypes == want
+    assert len(set(dtypes.values())) == 3
+

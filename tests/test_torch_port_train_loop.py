@@ -15,7 +15,8 @@
   Adam's moments take part: atol 1e-6;
 - importing the port, training and data modules included, imports no JAX:
   also the native binding, the prefetch pipeline, ``parallel/``, ``utils/``
-  and the data-parallel dryrun tool.
+  (plotting included), the loss scaler, the logger and the data-parallel
+  dryrun tool; nor do they import matplotlib or tensorboardX.
 """
 
 import os
@@ -174,10 +175,13 @@ def test_import_leaves_jax_out_with_training_modules():
         "        'tacotron2_vae_torch.data.native', 'tacotron2_vae_torch.data.prefetch',\n"
         "        'tacotron2_vae_torch.parallel', 'tacotron2_vae_torch.parallel.mesh',\n"
         "        'tacotron2_vae_torch.utils', 'tacotron2_vae_torch.utils.profiling',\n"
-        "        'tacotron2_vae_torch.tools.multihost_dryrun', 'tacotron2_vae_torch.tools.train_turns'}\n"
+        "        'tacotron2_vae_torch.tools.multihost_dryrun', 'tacotron2_vae_torch.tools.train_turns',\n"
+        "        'tacotron2_vae_torch.training.loss_scaler', 'tacotron2_vae_torch.training.logger',\n"
+        "        'tacotron2_vae_torch.training.checkpoint', 'tacotron2_vae_torch.utils.plotting'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tacotron2_vae_tpu'))]\n"
         "assert not bad, bad\n"
+        "assert not {'matplotlib', 'tensorboardX'} & set(sys.modules)\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
