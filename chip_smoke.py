@@ -7,6 +7,9 @@
     python3 chip_smoke.py --k12      # build K1/K2 alone: their checks, then their timings
     python3 chip_smoke.py --dp       # build, then only the data-parallel checks (train_dp)
     python3 chip_smoke.py --fp16     # build K1-K4, then only the float16 checks and fp16_run
+    python3 chip_smoke.py --tp       # build K2-K4, then only the model-axis checks (train_tp)
+    python3 chip_smoke.py --tp --nccl  # the same on 4 cards, a rank a card over NCCL, and
+                                       # train_waveglow at --mesh 2,2 (needs 4 cards)
 
 1. Environment: torch/CUDA versions, the card's name and power limit.
 2. Kernels: builds every CUDA kernel of the port from ``csrc/`` (one nvcc
@@ -46,9 +49,16 @@
    data parallel: ``train()`` under torchrun's environment at world 1 on
    NCCL against the plain run, and two gloo ranks on the card against one
    process, losses and state after 3 steps (``train_dp``, through
-   ``tools/multihost_dryrun.py``).  K2, K3 and K4 must launch; K3/K4 must
-   instantiate at most one graph per batch shape not among the last
-   ``GRAPHS``.
+   ``tools/multihost_dryrun.py``); the mesh's model axis (``train_tp``):
+   the full-width batch at 1x2 and 2x2 (gloo ranks on the card) against
+   one process, 3 steps, losses, rank 0's logical state and each rank's
+   bytes of parameters and Adam moments; a full-width WaveGlow (batch 4 of
+   16000 samples, 2 steps) at 2x1 and 1x2 against one process; and
+   ``tools/train_waveglow.py`` on synthetic wavs: 20 steps, a checkpoint, a
+   resume onto the uninterrupted run's state, a float16 export that
+   ``Synthesizer.load`` adopts and vocodes a 600-frame mel with.  K2, K3
+   and K4 must launch; K3/K4 must instantiate at most one graph per batch
+   shape not among the last ``GRAPHS``.
 4. Probe entry: ``tacotron2_vae_torch.tools.reshape_probe.main`` on the
    card; all four probes must report correct (K5 and K6 launch there).
 5. Serve: a full-width ``Synthesizer`` with random weights from a fixed seed
@@ -1290,6 +1300,66 @@ def train_pipeline(hp, device, tmp):
     return row
 
 
+def run_ranks(cmds: dict, tmp, log_name, timeout=600) -> dict:
+    """Start every command of ``cmds`` (name -> argv after the python
+    executable) at once; wait for all; their ``DRYRUN`` objects by name.
+    Fails when one exits non-zero; kills what outlives ``timeout``."""
+    child_env = {k: v for k, v in os.environ.items()
+                 if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                              "MASTER_PORT")}
+    child_env["PYTHONPATH"] = ROOT
+    procs = {name: subprocess.Popen([sys.executable, *cmd], cwd=ROOT, env=child_env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+             for name, cmd in cmds.items()}
+    logs = {}
+    for name, proc in procs.items():
+        try:
+            logs[name], _ = proc.communicate(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    with open(os.path.join(OUT_DIR, log_name), "w") as f:
+        for name, log in logs.items():
+            f.write(f"== {name}\n{log}\n")
+    for name, proc in procs.items():
+        if proc.returncode != 0:
+            raise AssertionError(f"{name} failed ({proc.returncode}): {logs[name][-2000:]}")
+    return {name: [json.loads(line[len("DRYRUN "):]) for line in logs[name].splitlines()
+                   if line.startswith("DRYRUN ")] for name in logs}
+
+
+def state_rel_err(one: dict, got: dict) -> float:
+    """|got - one| / |one - first| over every float entry of the saved
+    logical state dicts; both runs must have started from one state."""
+    import torch
+
+    moved = diff = 0.0
+    for k, v in one["state_dict"].items():
+        if v.is_floating_point():
+            first = one["init_state_dict"][k].double()
+            if not torch.equal(got["init_state_dict"][k].double(), first):
+                raise AssertionError(f"the runs did not start from one state: {k}")
+            moved += (v.double() - first).pow(2).sum().item()
+            diff += (got["state_dict"][k].double() - v.double()).pow(2).sum().item()
+    return (diff / moved) ** 0.5
+
+
+# --nccl: a rank a card over NCCL (4 cards), not gloo ranks sharing one
+NCCL = "--nccl" in sys.argv[1:]
+
+
+def _grid_cmd(grid, args, module="tacotron2_vae_torch.tools.multihost_dryrun", gloo=None):
+    """argv of ``module`` over a (data, model) grid of torchrun ranks (one
+    plain process for 1x1); gloo ranks sharing the card unless ``--nccl``
+    (``gloo`` overrides)."""
+    n = grid[0] * grid[1]
+    head = ["-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={n}"] if n > 1 else []
+    gloo = not NCCL if gloo is None else gloo
+    return [*head, "-m", module, *args, *(["--backend", "gloo"] if n > 1 and gloo else [])]
+
+
 DP_STEPS = 3           # steps of the two-rank run against one process
 DP_ITERS = 4           # batches of the world-1 NCCL run's corpus
 # Two ranks of B=32 against one process of B=64, bf16, three steps: the
@@ -1366,39 +1436,12 @@ def train_dp(hp, device, tmp):
     batch = fixed_batch(hp, device)
     npz = os.path.join(tmp, "dp_batch.npz")
     np.savez(npz, **{k: v.cpu().numpy() for k, v in batch.items()})
-    child_env = {k: v for k, v in os.environ.items()
-                 if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
-                              "MASTER_PORT")}
-    child_env["PYTHONPATH"] = ROOT
-    common = ["-m", "tacotron2_vae_torch.tools.multihost_dryrun", "--batch", npz,
-              "--full-width", "--steps", str(DP_STEPS)]
-    procs = {
-        "one": subprocess.Popen([sys.executable, *common, "--out",
-                                 os.path.join(tmp, "dp_one.pt")],
-                                cwd=ROOT, env=child_env, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True),
-        "two": subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                                 "--nproc_per_node=2", *common, "--backend", "gloo",
-                                 "--out", os.path.join(tmp, "dp_two.pt")],
-                                cwd=ROOT, env=child_env, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)}
-    logs = {}
-    for name, proc in procs.items():
-        try:
-            logs[name], _ = proc.communicate(timeout=300)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-    with open(os.path.join(OUT_DIR, "chip_smoke_dp.log"), "w") as f:
-        for name, log in logs.items():
-            f.write(f"== {name}\n{log}\n")
-    for name, proc in procs.items():
-        if proc.returncode != 0:
-            raise AssertionError(f"dryrun {name} failed ({proc.returncode}): "
-                                 f"{logs[name][-2000:]}")
-    ranks = {name: [json.loads(line[len("DRYRUN "):]) for line in logs[name].splitlines()
-                    if line.startswith("DRYRUN ")] for name in logs}
+    common = ["--batch", npz, "--full-width", "--steps", str(DP_STEPS)]
+    ranks = run_ranks({"one": _grid_cmd((1, 1), [*common, "--out",
+                                                 os.path.join(tmp, "dp_one.pt")]),
+                       "two": _grid_cmd((2, 1), [*common, "--out",
+                                                 os.path.join(tmp, "dp_two.pt")], gloo=True)},
+                      tmp, "chip_smoke_dp.log", timeout=300)
 
     B, S, T = TRAIN_SHAPE
     draws = {}
@@ -1411,15 +1454,7 @@ def train_dp(hp, device, tmp):
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(two[0]["loss"], one["loss"]))
     saved = {name: torch.load(os.path.join(tmp, f"dp_{name}.pt"), weights_only=True)
              for name in ("one", "two")}
-    moved = diff = 0.0
-    for k, v in saved["one"]["state_dict"].items():
-        if v.is_floating_point():
-            first = saved["one"]["init_state_dict"][k].double()
-            if not torch.equal(saved["two"]["init_state_dict"][k].double(), first):
-                raise AssertionError(f"the two runs did not start from one state: {k}")
-            moved += (v.double() - first).pow(2).sum().item()
-            diff += (saved["two"]["state_dict"][k].double() - v.double()).pow(2).sum().item()
-    state_err = (diff / moved) ** 0.5
+    state_err = state_rel_err(saved["one"], saved["two"])
     row = {"phase": "train_dp", "world1_backend": backend, "world1_iterations": len(world1),
            "world1_equal": world1 == plain, "world1_rows": world1,
            "two_ranks": {"backend": "gloo", "B": B, "rows_per_rank": B // 2,
@@ -1443,6 +1478,243 @@ def train_dp(hp, device, tmp):
         raise AssertionError(f"two ranks do not match one process: {row['two_ranks']}")
     if any(min(r["launches"]["K3"], r["launches"]["K4"]) < DP_STEPS for r in two):
         raise AssertionError(f"a rank did not run through K3/K4: {row['two_ranks']}")
+    return row
+
+
+# ---------------------------------------------------------- the model axis
+
+TP_STEPS = 3                   # steps of the Tacotron2 grid runs against one process
+TP_GRIDS = ((1, 2), (2, 2))    # (data, model): gloo ranks sharing the card
+WG_TP = (4, 16000, 2)          # WaveGlow grid runs: batch, segment samples, steps
+WG_TP_GRIDS = ((2, 1), (1, 2))
+# float32 WaveGlow on the grid against one process after WG_TP steps: the
+# loss (the row sums partial products in another order), and the state as
+# DP_STATE_RTOL measures it (Adam moves an element whose gradient is
+# rounding noise by up to lr either way).  Set from the prediction written
+# into PERF.md (section 6) before the first run on the card.
+WG_TP_LOSS_RTOL = 1e-4
+WG_TP_STATE_RTOL = 0.05
+WG_CLI = (4, 16000, 20, 10)    # train_waveglow: batch, segment, steps, checkpoint every
+
+
+def tp_tacotron2(hp, device, tmp):
+    """The full-width fixed batch, ``TP_STEPS`` steps, at each of
+    ``TP_GRIDS`` (every rank a gloo process on the card) and in one
+    process on all 64 rows; and ``train()`` itself at 1x2 (the dryrun's
+    corpus mode: full width, 8 clips, batch 4, 2 epochs); all started at
+    once."""
+    import numpy as np
+    import torch
+    from tacotron2_vae_torch.tools import multihost_dryrun as mh
+
+    work = os.path.join(tmp, "tp_corpus")
+    mh.make_corpus(work)
+    batch = fixed_batch(hp, device)
+    npz = os.path.join(tmp, "tp_batch.npz")
+    np.savez(npz, **{k: v.cpu().numpy() for k, v in batch.items()})
+    cmds = {}
+    for grid in ((1, 1),) + TP_GRIDS:
+        name = f"{grid[0]}x{grid[1]}"
+        args = ["--batch", npz, "--full-width", "--steps", str(TP_STEPS),
+                "--out", os.path.join(tmp, f"tp_{name}.pt")]
+        if grid[1] > 1:
+            args += ["--hparams", f"mesh_model={grid[1]}"]
+        cmds[name] = _grid_cmd(grid, args)
+    cmds["train"] = _grid_cmd((1, 2), ["--workdir", work, "--full-width",
+                                       "--hparams", "mesh_model=2"])
+    ranks = run_ranks(cmds, tmp, "chip_smoke_tp.log")
+    one = ranks["1x1"][0]
+    saved_one = torch.load(os.path.join(tmp, "tp_1x1.pt"), weights_only=True)
+    rows, failures = [], []
+    for grid in TP_GRIDS:
+        name = f"{grid[0]}x{grid[1]}"
+        got = ranks[name]
+        saved = torch.load(os.path.join(tmp, f"tp_{name}.pt"), weights_only=True)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(got[0]["loss"], one["loss"]))
+        state_err = state_rel_err(saved_one, saved)
+        split_one = sum(v.numel() * 4 * 3 for k, v in saved_one["state_dict"].items()
+                        if _tp_split(k))
+        row = {"grid": name, "ranks": len(got), "rows_per_rank": got[0]["rows"],
+               "loss_one": one["loss"], "loss": [r["loss"] for r in got],
+               "loss_rel_err": loss_err, "loss_rtol": DP_LOSS_RTOL,
+               "state_rel_err": state_err, "state_rtol": DP_STATE_RTOL,
+               "bytes_one": one["bytes"], "bytes_rank": [r["bytes"] for r in got],
+               "split_bytes_one": split_one,
+               "split_bytes_rank": [r["split_bytes"] for r in got],
+               "s_per_step_one": one["s_per_step"],
+               "s_per_step_rank": [r["s_per_step"] for r in got],
+               "launches": [r["launches"] for r in got]}
+        rows.append(row)
+        if len(got) != grid[0] * grid[1] or any(r["loss"] != got[0]["loss"] for r in got):
+            failures.append(f"{name}: a rank is missing or the ranks' losses disagree")
+        if loss_err > DP_LOSS_RTOL or state_err > DP_STATE_RTOL:
+            failures.append(f"{name}: does not match one process")
+        if any(r["split_bytes"] * grid[1] != split_one for r in got):
+            failures.append(f"{name}: a rank does not store 1/{grid[1]} of the split weights")
+        if any(min(r["launches"]["K3"], r["launches"]["K4"]) < TP_STEPS for r in got):
+            failures.append(f"{name}: a rank did not run through K3/K4")
+    entry = ranks["train"]
+    rows.append({"grid": "1x2", "entry": "train()", "ranks": len(entry),
+                 "iterations": [r["iters"] for r in entry],
+                 "launches": [r["launches"] for r in entry]})
+    if len(entry) != 2 or any(r["iters"] != 4 or min(r["launches"]["K3"],
+                                                      r["launches"]["K4"]) < 4 for r in entry):
+        failures.append(f"train() at 1x2 did not take its 4 steps through K3/K4: {rows[-1]}")
+    return rows, failures
+
+
+def _tp_split(name):
+    from tacotron2_vae_torch.parallel import mesh
+
+    return mesh.tacotron2_spec(name) is not None and "running" not in name
+
+
+def tp_waveglow(device, tmp):
+    """A full-width WaveGlow (random weights, ``end`` not zero), batch 4
+    of 16000-sample segments with mels through K2, ``WG_TP`` steps with
+    the CLI's clip at each of ``WG_TP_GRIDS`` against one process."""
+    import numpy as np
+    import torch
+    from tacotron2_vae_torch.ops import stft_mel as sm
+
+    B, n, steps = WG_TP
+    wg = random_waveglow()
+    init = os.path.join(tmp, "wg_init.pt")
+    torch.save(wg.state_dict(), init)
+    rng = np.random.RandomState(SEED)
+    t = np.arange(n) / 16000
+    audio = np.stack([0.3 * np.sin(2 * np.pi * (150 + 50 * i) * t) + 0.02 * rng.randn(n)
+                      for i in range(B)]).astype(np.float32)
+    mel = torch.cat([sm.mel_spectrogram_fused(torch.from_numpy(a).to(device)) for a in audio])
+    npz = os.path.join(tmp, "wg_batch.npz")
+    np.savez(npz, audio=audio, mel=mel.cpu().numpy())
+    cmds = {}
+    for grid in ((1, 1),) + WG_TP_GRIDS:
+        name = f"{grid[0]}x{grid[1]}"
+        cmds[name] = _grid_cmd(grid, [
+            "--waveglow", "--batch", npz, "--init", init, "--steps", str(steps),
+            "--clip", "1.0", "--mesh-model", str(grid[1]),
+            "--out", os.path.join(tmp, f"wg_{name}.pt")])
+    ranks = run_ranks(cmds, tmp, "chip_smoke_tp_waveglow.log")
+    one = ranks["1x1"][0]
+    saved_one = torch.load(os.path.join(tmp, "wg_1x1.pt"), weights_only=True)
+    rows, failures = [], []
+    for grid in WG_TP_GRIDS:
+        name = f"{grid[0]}x{grid[1]}"
+        got = ranks[name]
+        saved = torch.load(os.path.join(tmp, f"wg_{name}.pt"), weights_only=True)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(got[0]["loss"], one["loss"]))
+        state_err = state_rel_err(saved_one, saved)
+        row = {"grid": name, "ranks": len(got), "loss_one": one["loss"],
+               "loss": [r["loss"] for r in got], "grad_norm_one": one["grad_norm"],
+               "grad_norm": [r["grad_norm"] for r in got],
+               "loss_rel_err": loss_err, "loss_rtol": WG_TP_LOSS_RTOL,
+               "state_rel_err": state_err, "state_rtol": WG_TP_STATE_RTOL,
+               "bytes_one": one["bytes"], "bytes_rank": [r["bytes"] for r in got],
+               "split_bytes_rank": [r["split_bytes"] for r in got],
+               "s_per_step_one": one["s_per_step"],
+               "s_per_step_rank": [r["s_per_step"] for r in got]}
+        rows.append(row)
+        if not all(all(r["updated"]) for r in got + [one]):
+            failures.append(f"WaveGlow {name}: a step was skipped")
+        if loss_err > WG_TP_LOSS_RTOL or state_err > WG_TP_STATE_RTOL:
+            failures.append(f"WaveGlow {name}: does not match one process")
+    return rows, failures
+
+
+def tp_waveglow_cli(model, hp, device, tmp):
+    """``tools/train_waveglow.py`` on the card, full width, on 8 synthetic
+    wavs: ``WG_CLI`` steps with a checkpoint halfway; a resume from it to
+    the end, whose state must match the uninterrupted run's; the
+    export-only call in float16; ``Synthesizer.load`` of that export
+    vocodes a 600-frame mel."""
+    import numpy as np
+    import torch
+    from tacotron2_vae_torch.serving.synthesizer import Synthesizer
+    from tacotron2_vae_torch.tools import train_waveglow as tw
+
+    B, n, steps, every = WG_CLI
+    rng = np.random.RandomState(SEED + 2)
+    flist = os.path.join(tmp, "wg_train.txt")
+    with open(flist, "w", encoding="utf-8") as f:
+        for i in range(8):
+            p = os.path.join(tmp, f"wg_clip{i}.wav")
+            write_wav(p, 1.5 + 0.1 * i, 140 + 30 * i, rng)
+            f.write(f"{p}|{TEXT}|0|0\n")
+    common = ["--filelist", flist, "--batch", str(B), "--segment", str(n),
+              "--checkpoint_every", str(every)]
+    full, part = os.path.join(tmp, "wg_full"), os.path.join(tmp, "wg_part")
+    start = time.perf_counter()
+    last = tw.train_waveglow(tw.parse_args(["--output_dir", full, "--steps", str(steps),
+                                            *common]))
+    seconds = time.perf_counter() - start
+    resumed = tw.train_waveglow(tw.parse_args([
+        "--output_dir", part, "--steps", str(steps), "--resume",
+        os.path.join(full, f"waveglow_{every}"), *common]))
+    a = torch.load(os.path.join(full, f"waveglow_{steps}"), weights_only=True)
+    b = torch.load(os.path.join(part, f"waveglow_{steps}"), weights_only=True)
+    first = torch.load(os.path.join(full, f"waveglow_{every}"), weights_only=True)
+    err = state_rel_err({"state_dict": a["state_dict"], "init_state_dict": first["state_dict"]},
+                        {"state_dict": b["state_dict"], "init_state_dict": first["state_dict"]})
+    pkl = os.path.join(tmp, "wg_export16.pkl")
+    tw.train_waveglow(tw.parse_args(["--output_dir", os.path.join(tmp, "wg_only"),
+                                     "--steps", "0", "--resume",
+                                     os.path.join(full, f"waveglow_{steps}"), "--export", pkl,
+                                     "--export_dtype", "float16", *common]))
+    ckpt = os.path.join(tmp, "tp_t2.pt")
+    torch.save({"state_dict": {k: v.cpu() for k, v in model.state_dict().items()}}, ckpt)
+    synth = Synthesizer(hp, device=device)
+    synth.load(ckpt, waveglow_path=pkl, centroid_filelist=os.path.join(tmp, "none.txt"))
+    mel = np.random.RandomState(SEED).randn(1, hp.n_mel_channels, WG_MEL_FRAMES) - 4.0
+    wav = synth.vocode(mel.astype(np.float32))
+    row = {"phase": "train_waveglow_cli", "B": B, "segment": n, "steps": steps,
+           "s_per_step_first_run": seconds / steps,
+           "steps_per_sec_after_first": last["steps_per_sec"], "final_loss": last["final_loss"],
+           "resumed_final_loss": resumed["final_loss"], "resume_state_rel_err": err,
+           "resume_state_rtol": WG_TP_STATE_RTOL, "export_bytes": os.path.getsize(pkl),
+           "vocoded_samples": int(wav.shape[0]),
+           "vocoded_finite": bool(np.isfinite(wav).all())}
+    failures = []
+    if NCCL:  # the CLI on a 2x2 grid, a rank a card
+        out = os.path.join(tmp, "wg_grid")
+        log = run_ranks({"cli": _grid_cmd((2, 2), ["--output_dir", out, "--steps", str(steps),
+                                                   "--mesh", "2,2", *common],
+                                          module="tacotron2_vae_torch.tools.train_waveglow")},
+                        tmp, "chip_smoke_tp_cli.log")
+        with open(os.path.join(OUT_DIR, "chip_smoke_tp_cli.log")) as f:
+            grid_last = json.loads([line for line in f if line.startswith('{"final_loss"')][-1])
+        row["grid_2x2"] = grid_last
+        if not math.isfinite(grid_last["final_loss"]) or log["cli"]:
+            failures.append("train_waveglow --mesh 2,2 failed")
+    if err > WG_TP_STATE_RTOL or not math.isfinite(last["final_loss"]):
+        failures.append("train_waveglow: the resumed run left the uninterrupted one")
+    if synth.waveglow is None or wav.shape[0] != WG_MEL_FRAMES * hp.hop_length \
+            or not row["vocoded_finite"]:
+        failures.append("train_waveglow: the export did not vocode")
+    return row, failures
+
+
+def train_tp(model, hp, device, tmp):
+    """The mesh's model axis on the one card: ``tp_tacotron2``,
+    ``tp_waveglow`` and ``tp_waveglow_cli``; one JSON row."""
+    import torch
+    from tacotron2_vae_torch.ops import stft_mel as sm
+
+    sm.mel_spectrogram_fused.launches = 0
+    t2, f1 = tp_tacotron2(hp, device, tmp)
+    torch.cuda.empty_cache()
+    wg, f2 = tp_waveglow(device, tmp)
+    torch.cuda.empty_cache()
+    cli, f3 = tp_waveglow_cli(model, hp, device, tmp)
+    row = {"phase": "train_tp", "backend": "nccl" if NCCL else "gloo",
+           "cards": torch.cuda.device_count(), "tacotron2": t2, "waveglow": wg, "cli": cli,
+           "k2_launches": sm.mel_spectrogram_fused.launches}
+    print(json.dumps(row), flush=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_tp.json"), "w") as f:
+        json.dump(row, f, indent=1)
+    failures = f1 + f2 + f3
+    if failures:
+        raise AssertionError(f"model-axis checks failed: {failures}")
     return row
 
 
@@ -1728,7 +2000,8 @@ def waveglow_train(wg, device):
     model = WaveGlow(wg.cfg)
     model.load_state_dict(wg.state_dict())
     model = model.to(device).train()
-    step = make_waveglow_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-4))
+    step = make_waveglow_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-4,
+                                                            fused=True))
     rng = np.random.RandomState(SEED)
     t = np.arange(n) / 16000
     audio = torch.from_numpy(np.stack([
@@ -1745,12 +2018,13 @@ def waveglow_train(wg, device):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
     row = {"phase": "waveglow_train", "B": B, "samples": n, "mel_frames": mel.shape[2],
            "ms_per_step_each": times, "ms_per_step_after_first": sum(times[1:]) / (steps - 1),
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "loss": [m["loss"] for m in metrics], "grad_norm": [m["grad_norm"] for m in metrics]}
     print(json.dumps(row), flush=True)
-    if not all(m["updated"] and math.isfinite(m["loss"]) for m in metrics):
+    if not all(m["updated"] == 1.0 and math.isfinite(m["loss"]) for m in metrics):
         raise AssertionError(f"WaveGlow train steps not finite: {row}")
     return row
 
@@ -1812,6 +2086,7 @@ def main() -> int:
     names = (["reshape_probe"] if "--k56" in sys.argv[1:] else
              ["decoder_loop", "stft_mel"] if "--k12" in sys.argv[1:] else
              ["decoder_loop", "stft_mel", "teacher_fwd", "teacher_bwd"] if "--fp16" in sys.argv[1:]
+             else ["stft_mel", "teacher_fwd", "teacher_bwd"] if "--tp" in sys.argv[1:]
              else ["decoder_loop", "stft_mel", "teacher_fwd", "teacher_bwd", "reshape_probe"])
     logs = _build.build(names, verbose=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
@@ -1830,6 +2105,13 @@ def main() -> int:
     if "--dp" in sys.argv[1:]:  # the data-parallel checks alone
         with tempfile.TemporaryDirectory() as tmp:
             train_dp(hp, device, tmp)
+        return 0
+    if "--tp" in sys.argv[1:]:  # the model-axis checks alone
+        if NCCL and torch.cuda.device_count() < 4:
+            print("chip_smoke: --nccl needs 4 cards", file=sys.stderr)
+            return 1
+        with tempfile.TemporaryDirectory() as tmp:
+            train_tp(model, hp, device, tmp)
         return 0
     if "--k34" in sys.argv[1:]:  # the recurrence kernels' checks alone
         k34_phase(model, device)
@@ -1866,12 +2148,15 @@ def main() -> int:
         dp = train_dp(hp, device, tmp)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
+        tp = train_tp(model, hp, device, tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
         results, launches = serve_phase(model, hp, device, tmp)
     probes = probe_entry()
     launches.update({k: entry["launches"][k] for k in ("K3", "K4")}, **probes["launches"])
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernel_checks": rows + k56_rows + k34_rows,
-                   "requests": results, "train": [steady, fp16, entry, entry16, pipeline, dp],
+                   "requests": results, "train": [steady, fp16, entry, entry16, pipeline, dp, tp],
                    "probes": probes,
                    "launches": launches}, f, indent=1)
 

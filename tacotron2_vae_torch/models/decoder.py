@@ -14,6 +14,12 @@ every B from 1 to 8 and raises beyond; on the CPU it runs the plain loop
 below.  Prenet dropout stays on at inference (reference model.py:101); its
 bits come from the kernel's counter hash keyed on a seed, so the plain loop
 and the kernel draw the same masks.
+
+Under a mesh's model axis (training only) the prenet and the memory
+projection are column-parallel (each rank's output features, gathered),
+the query projection's slices are gathered into the whole weight, the
+recurrence runs whole on every rank of the row, and the mel and gate
+projections are row-parallel over the 1536-wide ``[h_dec, context]``.
 """
 
 from __future__ import annotations
@@ -26,8 +32,10 @@ from torch import nn
 
 from ..ops import decoder_loop as _dl
 from ..ops.decoder_loop import ungroup_mel  # noqa: F401  (JAX decoder.ungroup_mel)
-from ..ops.layers import ConvNorm, LinearNorm, conv1d, dropout, linear
+from ..ops.layers import (ConvNorm, LinearNorm, col_linear, conv1d, dropout, linear,
+                          row_linear)
 from ..ops.rnn import lstm_cell
+from ..parallel import tp
 
 PRENET_DROP = 0.5  # reference model.py:11,101
 
@@ -106,16 +114,37 @@ class Decoder(nn.Module):
 
     def prenet_train(self, x, generator=None, dropout_enabled=True, dtype=None):
         """2 x (linear -> ReLU -> dropout 0.5) with dropout drawn from
-        ``generator`` (the teacher-forced prenet over all frames)."""
+        ``generator`` (the teacher-forced prenet over all frames); under a
+        model axis each layer's features are this rank's, their mask drawn
+        at the full width, and the row's are gathered."""
         for layer in self.prenet.layers:
-            x = torch.relu(linear(x, layer.linear_layer.weight, dtype=dtype))
-            x = dropout(x, PRENET_DROP, generator, enabled=dropout_enabled)
+            x = torch.relu(col_linear(x, layer.linear_layer.weight, dtype=dtype))
+            x = dropout(x, PRENET_DROP, generator, enabled=dropout_enabled, col_dim=-1)
+            x = tp.gather(x, -1)
         return x
 
+    def process_memory(self, memory, dtype=None):
+        """memory (B, S, E) -> its attention keys (B, S, A)."""
+        w = self.attention_layer.memory_layer.linear_layer.weight
+        return tp.gather(col_linear(memory, w, dtype=dtype), -1)
+
+    def query_weight(self):
+        """The query projection's whole (A, H) weight."""
+        return tp.gather(self.attention_layer.query_layer.linear_layer.weight, 0)
+
+    def project(self, hidden_ctx, dtype=None):
+        """[h_dec, context] (..., D + E) -> (mel frames (..., r * n_mel),
+        gate logits (...,))."""
+        proj, gate = self.linear_projection.linear_layer, self.gate_layer.linear_layer
+        return (row_linear(hidden_ctx, proj.weight, proj.bias, dtype=dtype),
+                row_linear(hidden_ctx, gate.weight, gate.bias, dtype=dtype)[..., 0])
+
     def _attend(self, h_att, memory, processed_memory, attn_w, attn_w_cum,
-                mask, dtype=None):
+                mask, dtype=None, query_w=None):
         att = self.attention_layer
-        q = linear(h_att, att.query_layer.linear_layer.weight, dtype=dtype)
+        if query_w is None:
+            query_w = att.query_layer.linear_layer.weight
+        q = linear(h_att, query_w, dtype=dtype)
         loc_feats = torch.stack([attn_w, attn_w_cum], dim=-1)          # (B, S, 2)
         loc = conv1d(loc_feats, att.location_layer.location_conv.conv.weight,
                      dtype=dtype)
@@ -131,7 +160,8 @@ class Decoder(nn.Module):
         return context, weights
 
     def decode_step(self, state: DecoderState, prenet_out, memory,
-                    processed_memory, mask, dtype=None, train=False, generator=None):
+                    processed_memory, mask, dtype=None, train=False, generator=None,
+                    query_w=None):
         """One decoder step (reference Decoder.decode); ``train`` applies
         dropout to h and c of both LSTMs."""
         hp = self.hp
@@ -143,7 +173,7 @@ class Decoder(nn.Module):
             h_att = dropout(h_att, hp.p_attention_dropout, generator)
             c_att = dropout(c_att, hp.p_attention_dropout, generator)
         context, attn_w = self._attend(h_att, memory, processed_memory,
-                                       state.attn_w, state.attn_w_cum, mask, dtype)
+                                       state.attn_w, state.attn_w_cum, mask, dtype, query_w)
         cell = self.decoder_rnn
         h_dec, c_dec = lstm_cell(torch.cat([h_att, context], -1), state.h_dec,
                                  state.c_dec, cell.weight_ih, cell.weight_hh,
@@ -178,8 +208,8 @@ class Decoder(nn.Module):
         groups = group_frames(mels, r)
         dec_in = torch.cat([groups.new_zeros(B, 1, r * n_mel), groups[:, :-1]], 1)
         prenet_out = self.prenet_train(dec_in, generator, prenet_dropout_enabled, dtype)
-        processed = linear(memory, self.attention_layer.memory_layer.linear_layer.weight,
-                           dtype=dtype)
+        processed = self.process_memory(memory, dtype)
+        query_w = self.query_weight()
         mask = None
         if memory_lengths is not None:
             mask = torch.arange(S, device=memory.device)[None, :] < memory_lengths[:, None]
@@ -187,14 +217,13 @@ class Decoder(nn.Module):
         h_dec, ctx, align = [], [], []
         for t in range(groups.shape[1]):
             state = self.decode_step(state, prenet_out[:, t], memory, processed, mask,
-                                     dtype, train=train, generator=generator)
+                                     dtype, train=train, generator=generator,
+                                     query_w=query_w)
             h_dec.append(state.h_dec)
             ctx.append(state.context)
             align.append(state.attn_w)
         hidden_ctx = torch.cat([torch.stack(h_dec), torch.stack(ctx)], -1)  # (Tg, B, .)
-        proj, gate = self.linear_projection.linear_layer, self.gate_layer.linear_layer
-        mel_out = linear(hidden_ctx, proj.weight, proj.bias, dtype=dtype)
-        gate_out = linear(hidden_ctx, gate.weight, gate.bias, dtype=dtype)[..., 0]
+        mel_out, gate_out = self.project(hidden_ctx, dtype)
         return ungroup_mel(mel_out, n_mel, r), gate_out.t(), torch.stack(align, 1)
 
     def packed(self, dtype):

@@ -10,6 +10,12 @@ large products ``dW = X^T dG`` for the LSTM weights, the bias sums, the
 memory gradient, and the location-conv weight gradient from the F-wide
 ``dloc`` stream.  On a CUDA tensor the kernels always run; shapes they do
 not take raise.
+
+Under a mesh's model axis the prenet output and the memory keys are
+gathered before ``ScanCore``, which runs on every rank of the row with the
+whole weights (the query projection's gathered) and the data rank's rows,
+as the JAX ``_shard_mapped_scan_core``; the mel and gate projections after
+it are row-parallel (``Decoder.project``).
 """
 
 from __future__ import annotations
@@ -19,7 +25,6 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..ops import teacher_fwd as tf
-from ..ops.layers import linear
 from ..parallel import mesh
 from .decoder import group_frames, ungroup_mel
 
@@ -125,7 +130,8 @@ def scan_backward(w, pn, mem, pm, masks, ys, resids, dys, bwd=None):
 
 def scan_params(dec) -> dict:
     """The decoder module's recurrence weights in the JAX layout (views and
-    concatenations of the parameters, so gradients reach them)."""
+    concatenations of the parameters, so gradients reach them; the query
+    projection whole under a model axis)."""
     att = dec.attention_layer
     loc = att.location_layer
     a, d = dec.attention_rnn, dec.decoder_rnn
@@ -134,7 +140,7 @@ def scan_params(dec) -> dict:
         "attn_b": a.bias_ih + a.bias_hh,
         "dec_w": torch.cat([d.weight_ih, d.weight_hh], 1).t(),
         "dec_b": d.bias_ih + d.bias_hh,
-        "query_w": att.query_layer.linear_layer.weight.t(),
+        "query_w": dec.query_weight().t(),
         "loc_w": loc.location_conv.conv.weight.permute(2, 1, 0),
         "loc_dense_w": loc.location_dense.linear_layer.weight.t(),
         "v": att.v.linear_layer.weight[0],
@@ -166,7 +172,7 @@ def teacher_forced(dec, memory, mels, memory_lengths, hp, *, train: bool,
     dec_in = torch.cat([groups.new_zeros(B, 1, r * n_mel), groups[:, :-1]], 1)
     prenet_seq = dec.prenet_train(dec_in, generator, prenet_dropout_enabled,
                                   dtype).transpose(0, 1)
-    pmem = linear(memory, dec.attention_layer.memory_layer.linear_layer.weight)
+    pmem = dec.process_memory(memory)
     if memory_lengths is not None:
         valid = torch.arange(S, device=memory.device)[None, :] < memory_lengths[:, None]
         add_mask = torch.where(valid, 0.0, _F32_MIN)
@@ -183,8 +189,5 @@ def teacher_forced(dec, memory, mels, memory_lengths, hp, *, train: bool,
     p = scan_params(dec)
     h_dec, ctx, w = ScanCore.apply(*(p[k] for k in PARAM_NAMES), prenet_seq, memory, pmem,
                                    add_mask, *masks, sdt)
-    hidden_ctx = torch.cat([h_dec, ctx], -1)
-    proj, gate = dec.linear_projection.linear_layer, dec.gate_layer.linear_layer
-    mel_out = linear(hidden_ctx, proj.weight, proj.bias, dtype=dtype)
-    gate_out = linear(hidden_ctx, gate.weight, gate.bias, dtype=dtype)[..., 0]
+    mel_out, gate_out = dec.project(torch.cat([h_dec, ctx], -1), dtype)
     return ungroup_mel(mel_out, n_mel, r), gate_out.t(), w.transpose(0, 1)

@@ -10,7 +10,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.layers import ConvNorm, batchnorm, conv1d, dropout
+from ..ops.layers import ConvNorm, batchnorm, col_conv1d, dropout
+from ..parallel import tp
 from ..ops.rnn import bilstm
 
 DROP_RATE = 0.5  # reference model.py:11
@@ -37,7 +38,9 @@ class Encoder(nn.Module):
         ``train`` normalises with batch statistics (updating the running
         ones) and applies dropout 0.5 after every ReLU, drawn from
         ``generator``; training masks no conv input, as the reference lets
-        pad leak into the receptive field (JAX ``encoder.apply``)."""
+        pad leak into the receptive field (JAX ``encoder.apply``).  Under
+        a model axis each conv writes this rank's channels, normalised and
+        dropped on their own, and the row's are gathered before the next."""
         mask = None
         if mask_conv_inputs and lengths is not None:
             mask = (torch.arange(x.shape[1], device=x.device)[None, :]
@@ -46,7 +49,7 @@ class Encoder(nn.Module):
             conv, bn = block[0].conv, block[1]
             if mask is not None:
                 x = torch.where(mask, x, torch.zeros_like(x))
-            x = conv1d(x, conv.weight, conv.bias, dtype=dtype)
+            x = col_conv1d(x, conv.weight, conv.bias, dtype=dtype)
             x = torch.relu(batchnorm(x, bn, train=train))
-            x = dropout(x, DROP_RATE, generator, enabled=train)
+            x = tp.gather(dropout(x, DROP_RATE, generator, enabled=train, col_dim=-1), -1)
         return bilstm(x, self.lstm, lengths, dtype=dtype)

@@ -10,7 +10,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.layers import ConvNorm, batchnorm, conv1d, dropout
+from ..ops.layers import ConvNorm, batchnorm, col_conv1d, dropout
+from ..parallel import tp
 
 DROP_RATE = 0.5
 
@@ -31,13 +32,15 @@ class Postnet(nn.Module):
         """mel (B, n_mel, T) -> residual (B, n_mel, T) in the compute dtype.
 
         ``train`` uses batch statistics and applies dropout 0.5 after every
-        layer, the last (linear) one included (reference model.py:146)."""
+        layer, the last (linear) one included (reference model.py:146).
+        Under a model axis each conv writes this rank's channels and the
+        row's are gathered before the next, as in the encoder."""
         x = mel.transpose(1, 2)
         n = len(self.convolutions)
         for i, block in enumerate(self.convolutions):
             conv, bn = block[0].conv, block[1]
-            x = batchnorm(conv1d(x, conv.weight, conv.bias, dtype=dtype), bn, train=train)
+            x = batchnorm(col_conv1d(x, conv.weight, conv.bias, dtype=dtype), bn, train=train)
             if i < n - 1:
                 x = torch.tanh(x)
-            x = dropout(x, DROP_RATE, generator, enabled=train)
+            x = tp.gather(dropout(x, DROP_RATE, generator, enabled=train, col_dim=-1), -1)
         return x.transpose(1, 2)

@@ -17,7 +17,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from ..ops.layers import LinearNorm, embedding
+from ..ops.layers import LinearNorm, col_embedding, embedding
 from .decoder import Decoder
 from .encoder import Encoder
 from .postnet import Postnet
@@ -92,13 +92,16 @@ class Tacotron2(nn.Module):
         batch-statistics batchnorm (updating the running statistics),
         dropout, recurrent dropout and VAE sampling, all drawn from
         ``generator``; the prenet's dropout follows
-        ``prenet_dropout_enabled`` in both modes (reference model.py:101)."""
+        ``prenet_dropout_enabled`` in both modes (reference model.py:101).
+        Inside a scope whose grid has a model axis the model holds this
+        rank's slices (``parallel.mesh.shard_module``) and computes the
+        whole output on every rank of the row."""
         from . import decoder_bptt
 
         hp = self.hp
         dtype = compute_dtype(hp)
         text, lengths, mel = batch["text"], batch["input_lengths"], batch["mel"]
-        embedded = embedding(self.transcript_embedding.weight, text)
+        embedded = col_embedding(self.transcript_embedding.weight, text)
         transcript = self.encoder(embedded, lengths, dtype=dtype, train=train,
                                   generator=generator)
         prosody, mu, logvar, z = self.vae_gst(

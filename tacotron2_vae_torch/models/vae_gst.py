@@ -13,9 +13,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.layers import batchnorm, conv2d, linear
+from ..ops.layers import batchnorm, col_conv2d, linear
 from ..ops.rnn import gru_scan
-from ..parallel import mesh
+from ..parallel import mesh, tp
 
 
 def conv_out_len(L: int, n_convs: int, kernel=3, stride=2, pad=1) -> int:
@@ -95,7 +95,9 @@ class VAE_GST(nn.Module):
         checkpoints); the default is the true (time, frequency) transpose.
         ``mel_lengths`` makes zero-padded batches exact per item: invalid
         rows are re-zeroed after every level and the GRU freezes past each
-        item's length."""
+        item's length.  Under a model axis each conv writes this rank's
+        channels and the row's are gathered before the next conv and the
+        GRU, which stays whole."""
         enc = self.ref_encoder
         if raw_reshape:
             if mel_lengths is not None:
@@ -113,8 +115,8 @@ class VAE_GST(nn.Module):
             if i == 0:
                 x = add_coords_2d(x, lengths=valid_len)
                 conv = conv.conv
-            x = conv2d(x, conv.weight, conv.bias, dtype=dtype)
-            x = torch.relu(batchnorm(x, bn, train=train))
+            x = col_conv2d(x, conv.weight, conv.bias, dtype=dtype)
+            x = tp.gather(torch.relu(batchnorm(x, bn, train=train)), -1)
             if valid_len is not None:
                 valid_len = (valid_len - 1) // 2 + 1
                 x = _zero_rows(x, valid_len)

@@ -26,18 +26,29 @@ card a bf16 product with a float32 output), the dilated convolution's
 output is rounded to bf16 and the float32 bias added after; the upsampler,
 the 1x1 flow mixing and the coupling stay float32.  Without a Pallas kernel
 in the JAX model, the convolutions here are cuDNN/cuBLAS calls.
+
+Training on a (data, model) grid (``make_waveglow_train_step`` with a
+``parallel.mesh.Grid``, the JAX ``make_waveglow_parallel_train_step``):
+the data ranks' losses are means over equal shards of the batch, so their
+mean is the global loss; the model axis splits what ``mesh.waveglow_spec``
+names (``shard_module``), Megatron's pattern on the WaveNet stack: the
+upsampler and the layers that write the hidden channels (``start``,
+``cond_layer``, ``in_layers``) keep this rank's output channels, and the
+gate pairs channel c with nc + c, so a rank holds the same slice of both
+halves; the layers that read them (``res_skip_layers``, ``end``) keep its
+input channels and sum their partial products over the row.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.layers import cast
+from ..parallel import mesh, tp
 
 
 @dataclass(frozen=True)
@@ -115,7 +126,7 @@ class WaveGlow(nn.Module):
             x = squeeze_audio(audio.float(), cfg.n_group)
             T = x.shape[2]
             mel_up = self.upsample_mel(mel)
-            cond = squeeze_mel(mel_up[:, :, :T * cfg.n_group], cfg.n_group)[:, :, :T]
+            cond = tp.copy(squeeze_mel(mel_up[:, :, :T * cfg.n_group], cfg.n_group)[:, :, :T])
             out_z, log_s_all, log_det_all = [], [], []
             for k in range(cfg.n_flows):
                 if cfg.emits_early(k):
@@ -139,8 +150,8 @@ class WaveGlow(nn.Module):
         its tail of kernel - stride samples trimmed (NVIDIA glow.py)."""
         k, s = self.cfg.upsample_kernel, self.cfg.upsample_stride
         with _full_fp32():
-            y = F.conv_transpose1d(mel.float(), self.upsample.weight, self.upsample.bias,
-                                   stride=s)
+            y = tp.gather(F.conv_transpose1d(mel.float(), self.upsample.weight,
+                                             self.upsample.bias, stride=s), 1)
         return y[:, :, :y.shape[2] - (k - s)]
 
     def cond_from_mel(self, mel):
@@ -195,43 +206,53 @@ def _full_fp32():
     return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
 
 
-def _conv(conv: nn.Conv1d, x, dtype=None):
+def _conv(conv: nn.Conv1d, x, dtype=None, bias: bool = True):
     """A WaveNet convolution of channel-first x, rounded as the JAX
-    ``_conv1d`` rounds in ``dtype`` (see the module note)."""
-    w, b = conv.weight, conv.bias[:, None]
+    ``_conv1d`` rounds in ``dtype`` (see the module note); the bias is
+    added last, when ``bias``."""
+    w = conv.weight
     if dtype is None:
-        return F.conv1d(x, w, padding=conv.padding, dilation=conv.dilation) + b
-    if w.shape[2] == 1:
+        y = F.conv1d(x, w, padding=conv.padding, dilation=conv.dilation)
+    elif w.shape[2] == 1:
         if x.is_cuda:
             w2, xd = w[:, :, 0].to(dtype), x.to(dtype)
             y = torch.stack([torch.mm(w2, xb, out_dtype=torch.float32) for xb in xd])
         else:
             y = F.conv1d(cast(x, dtype), cast(w, dtype))
-        return y + b
-    if x.is_cuda:
-        y = F.conv1d(x.to(dtype), w.to(dtype), padding=conv.padding, dilation=conv.dilation)
+    elif x.is_cuda:
+        y = F.conv1d(x.to(dtype), w.to(dtype), padding=conv.padding,
+                     dilation=conv.dilation).float()
     else:
         y = F.conv1d(cast(x, dtype), cast(w, dtype), padding=conv.padding,
-                     dilation=conv.dilation).to(dtype)
-    return y.float() + b
+                     dilation=conv.dilation).to(dtype).float()
+    return y + conv.bias[:, None] if bias else y
+
+
+def _row_conv(conv: nn.Conv1d, x, dtype=None):
+    """A 1x1 convolution of this rank's input channels: the partial
+    products summed over the row, then the bias."""
+    return tp.reduce(_conv(conv, x, dtype, bias=False)) + conv.bias[:, None]
 
 
 def _wn(wn: WN, audio_0, cond, cfg: WaveGlowConfig, dtype=None):
-    """(b, log_s), each (B, n_half, T), of one flow's conditioner."""
+    """(b, log_s), each (B, n_half, T), of one flow's conditioner.  Under a
+    model axis ``cond`` went through ``tp.copy`` and the hidden channels
+    each layer writes are this rank's ``n`` of each gate half."""
     nc = cfg.n_channels
-    x = _conv(wn.start, audio_0, dtype)
+    n = wn.in_layers[0].weight.shape[0] // 2
+    x = tp.gather(_conv(wn.start, tp.copy(audio_0), dtype), 1)
     cond_all = _conv(wn.cond_layer, cond, dtype)
     output = None
     for i in range(cfg.n_layers):
-        a = _conv(wn.in_layers[i], x, dtype)
-        c = cond_all[:, i * 2 * nc:(i + 1) * 2 * nc]
-        acts = torch.tanh(a[:, :nc] + c[:, :nc]) * torch.sigmoid(a[:, nc:] + c[:, nc:])
-        rs = _conv(wn.res_skip_layers[i], acts, dtype)
+        a = _conv(wn.in_layers[i], tp.copy(x), dtype)
+        c = cond_all[:, i * 2 * n:(i + 1) * 2 * n]
+        acts = torch.tanh(a[:, :n] + c[:, :n]) * torch.sigmoid(a[:, n:] + c[:, n:])
+        rs = _row_conv(wn.res_skip_layers[i], acts, dtype)
         if i < cfg.n_layers - 1:
             x = x + rs[:, :nc]
             rs = rs[:, nc:]
         output = rs if output is None else output + rs
-    out = _conv(wn.end, output, dtype)
+    out = _row_conv(wn.end, tp.scatter(output, 1), dtype)
     n_half = out.shape[1] // 2
     return out[:, :n_half], out[:, n_half:]
 
@@ -293,26 +314,52 @@ def waveglow_loss(z, log_s_list, log_det_w_list, sigma: float = 1.0):
 
 
 def make_waveglow_train_step(model: WaveGlow, optimizer: torch.optim.Optimizer,
-                             sigma: float = 1.0):
-    """``step(audio, mel) -> {"loss", "grad_norm", "updated"}``, one update of
-    ``model`` by ``optimizer`` on the flow NLL.  A loss or gradient norm
-    that is not finite skips the whole update (parameters and optimizer
+                             sigma: float = 1.0, clip: float | None = None,
+                             grid: mesh.Grid | None = None):
+    """``step(audio, mel) -> {"loss", "grad_norm", "updated"}`` (device
+    scalars; the step never waits for the card), one update of ``model``
+    by ``optimizer``, a fused Adam, on the flow NLL.  ``clip`` clips the
+    gradients to that global norm first (the JAX CLI's
+    ``optax.clip_by_global_norm``).  A loss or gradient norm that is not
+    finite skips the whole update on the device (parameters and Adam's
     state stay as they were), as the JAX step does: one poisoned update
-    turns the weights to NaN for good."""
+    turns the weights to NaN for good.
+
+    On a ``grid`` each rank passes its data index's rows of the global
+    batch (equal shares, so the mean of the ranks' losses is the global
+    one) and ``model`` holds its slices (``mesh.shard_module`` with
+    ``mesh.waveglow_spec``); the gradients and the loss are averaged over
+    the column, and the norm is the logical tree's, so the clip and the
+    skip agree on every rank."""
+    if not optimizer.defaults.get("fused"):
+        raise ValueError("the WaveGlow step skips a non-finite update on the device through "
+                         "a fused optimizer: pass torch.optim.Adam(..., fused=True)")
+    params = list(model.parameters())
+    sharded = mesh.sharded_parameters(model)
+    data = grid.data if grid is not None else 1
 
     def step(audio, mel):
         optimizer.zero_grad(set_to_none=True)
-        z, log_s, log_det = model(audio, mel)
-        loss = waveglow_loss(z, log_s, log_det, sigma)
+        with mesh.scope(grid):
+            loss = waveglow_loss(*model(audio, mel), sigma)
         loss.backward()
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        grad_norm = float(torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])))
-        loss = float(loss.detach())
-        ok = bool(np.isfinite(loss) and np.isfinite(grad_norm))
-        if ok:
-            optimizer.step()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        loss = loss.detach().reshape(1)
+        if data > 1:
+            mesh.all_reduce_flat(grads + [loss], grid.data_group)
+            torch._foreach_div_(grads, data)
+            loss = loss / data
+        loss = loss[0]
+        norm = mesh.global_norm(grads, sharded, grid)
+        ok = torch.isfinite(loss) & torch.isfinite(norm)
+        optimizer.grad_scale = (None if clip is None
+                                else torch.clamp(norm, min=clip) / clip)
+        optimizer.found_inf = (~ok).float()
+        optimizer.step()
         optimizer.zero_grad(set_to_none=True)
-        return {"loss": loss, "grad_norm": grad_norm, "updated": ok}
+        return {"loss": loss, "grad_norm": norm, "updated": ok}
 
     return step

@@ -13,6 +13,14 @@ a caller turns TF32 on, and conv2d turns cuDNN's TF32 off for its call.
 
 The parameter containers ``LinearNorm`` and ``ConvNorm`` carry the
 reference's state_dict names (``linear_layer``, ``conv``).
+
+Tensor parallelism (``parallel/tp.py``): ``col_linear``, ``col_conv1d``
+and ``col_conv2d`` take this rank's output-feature slice of a weight (and
+bias) and a whole input, and return this rank's output features;
+``col_embedding`` looks up this rank's columns of the table and gathers
+the row's; ``row_linear`` takes this rank's contraction slice of a weight
+and a whole input, and returns the whole output.  Outside a scope with a
+model axis they are the plain layers.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel import mesh
+from ..parallel import mesh, tp
 
 
 def cast(x: torch.Tensor, dtype) -> torch.Tensor:
@@ -113,17 +121,47 @@ def batchnorm(x, bn: nn.BatchNorm1d, eps=None, train: bool = False,
     return y.to(x.dtype)
 
 
-def dropout(x, rate: float, generator=None, enabled: bool = True, batch_dim: int = 0):
+def dropout(x, rate: float, generator=None, enabled: bool = True, batch_dim: int = 0,
+            col_dim: int | None = None):
     """Inverted dropout with an explicit generator (off when not enabled);
-    inside a data-parallel scope the mask is drawn at the global batch's
-    shape along ``batch_dim`` and cut to this rank's rows."""
+    inside a scope the mask is drawn at the global batch's shape along
+    ``batch_dim`` and cut to this rank's rows, and, where ``x`` holds this
+    rank's slice of the features along ``col_dim``, at the full width and
+    cut to its columns."""
     if not enabled or rate == 0.0:
         return x
     keep = 1.0 - rate
     dev = x.device if generator is None else generator.device
-    mask = (mesh.rand_rows(x.shape, batch_dim, generator, dev) < keep).to(x.device)
+    if col_dim is None:
+        draw = mesh.rand_rows(x.shape, batch_dim, generator, dev)
+    else:
+        draw = mesh.rand_cols(x.shape, batch_dim, col_dim % x.ndim, generator, dev)
+    mask = (draw < keep).to(x.device)
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def embedding(table, ids):
     return F.embedding(ids.long(), table)
+
+
+def col_linear(x, w, b=None, dtype=None):
+    return linear(tp.copy(x), w, b, dtype)
+
+
+def row_linear(x, w, b=None, dtype=None):
+    """``linear`` with w (out, in / model): the partial products summed
+    over the row, then the bias."""
+    y = tp.reduce(linear(tp.scatter(x, -1), w, dtype=dtype))
+    return y if b is None else y + b.float()
+
+
+def col_conv1d(x, w, b=None, dtype=None):
+    return conv1d(tp.copy(x), w, b, dtype)
+
+
+def col_conv2d(x, w, b=None, dtype=None):
+    return conv2d(tp.copy(x), w, b, dtype=dtype)
+
+
+def col_embedding(table, ids):
+    return tp.gather(embedding(table, ids), -1)

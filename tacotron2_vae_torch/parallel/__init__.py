@@ -1,13 +1,15 @@
-"""Data-parallel training over torch.distributed."""
+"""Data and tensor parallelism over torch.distributed."""
 
 from .mesh import (  # noqa: F401
-    DataParallel,
+    Grid,
+    Shard,
     all_reduce_flat,
     barrier,
     batch_stats,
     broadcast_module,
     check_mesh,
     init_distributed,
+    rand_cols,
     rand_rows,
     scope,
     shutdown,

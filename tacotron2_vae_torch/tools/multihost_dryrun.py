@@ -1,9 +1,10 @@
-"""One rank of a data-parallel run of the port, on a tiny corpus or a saved batch.
+"""One rank of a (data, model) grid of the port, on a tiny corpus or a saved batch.
 
 The port's counterpart of the JAX package's ``tools/multihost_dryrun.py``:
 it exercises what one process cannot, the process group's rendezvous, the
 loader's per-rank shards, global batchnorm statistics and random draws,
-and the gradient all-reduce.  Launch it once per rank with torchrun:
+the gradient all-reduce and, with ``--hparams mesh_model=M``, the tensor-
+parallel model axis.  Launch it once per rank with torchrun:
 
     python -m tacotron2_vae_torch.tools.multihost_dryrun --make-corpus --workdir W
     torchrun --standalone --nproc_per_node=2 \\
@@ -14,11 +15,16 @@ in ``W`` (tiny widths, ``fixed_batch_shapes``, batch 4 over the ranks) and
 prints ``DRYRUN {json}`` with its rank, world and iteration count; rank 0
 prints the ``Train loss`` lines.  With ``--batch B.npz`` each rank takes its
 rows of that global batch and takes ``--steps`` train steps on them
-(``make_train_step`` with the process group), from the state dict
+(``make_train_step`` on the grid), from the state dict
 ``--init`` when given; rank 0 writes the per-step losses, gradient norms
-and gradients and the first and final state dicts to ``--out``.  Without torchrun's
-environment it is one process on the whole batch, the reference the ranks
-are held against.  ``--backend gloo`` lets two ranks share one card.
+and logical gradients and the first and final logical state dicts to
+``--out``.  With ``--waveglow`` the batch holds ``audio`` and ``mel`` and
+the ranks take WaveGlow steps (``make_waveglow_train_step``, the
+``--wg-config`` JSON over the default config, ``--mesh-model`` ranks a
+row, Adam at 1e-4 after ``--clip``).  Each rank reports the bytes of its parameters and Adam moments.
+Without torchrun's environment it is one process on the whole batch, the
+reference the ranks are held against.  ``--backend gloo`` lets two ranks
+share one card.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
+import time
 
 import numpy as np
 import torch
@@ -84,46 +92,123 @@ def run_corpus(args, hp) -> dict:
     return {"rank": rank, "world": world, "iters": it, "launches": _launches()}
 
 
+def _bytes(model, optimizer) -> int:
+    """This rank's bytes of parameters and Adam moments."""
+    moments = sum(t.numel() * t.element_size() for st in optimizer.state.values()
+                  for k, t in st.items() if k in ("exp_avg", "exp_avg_sq"))
+    return moments + sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def _rows(path, grid, dev) -> dict:
+    """This rank's data index's rows of the global batch in ``path``."""
+    with np.load(path) as f:
+        full = {k: f[k] for k in f.files}
+    data, index = (grid.data, grid.data_index) if grid else (1, 0)
+    B = next(iter(full.values())).shape[0]
+    if B % data:
+        raise ValueError(f"batch of {B} rows does not split over {data} data ranks")
+    rows = slice(index * (B // data), (index + 1) * (B // data))
+    return {k: torch.from_numpy(np.ascontiguousarray(v[rows])).to(
+        dev, torch.long if v.dtype.kind in "iu" else torch.float32) for k, v in full.items()}
+
+
+def _logical_grads(model, grid) -> dict:
+    from ..parallel import mesh
+
+    shards = getattr(model, "tp_shards", {})
+    return {n: (mesh.gather_shard(p.grad, shards[n], grid) if n in shards
+                else p.grad.detach()).cpu().clone() for n, p in model.named_parameters()}
+
+
 def run_batch(args, hp) -> dict:
     """``--steps`` train steps on this rank's rows of the batch in
-    ``--batch``; rank 0 saves losses, norms and the final state dict."""
+    ``--batch``; rank 0 saves losses, norms and the logical state dicts."""
     from ..parallel import mesh
     from ..training.train_state import create_train_state, make_train_step, resolve_device
 
-    dp, dev = mesh.init_distributed(hp, args.device, args.backend)
-    if dp is None:
+    grid, dev = mesh.init_distributed(hp, args.device, args.backend)
+    if grid is None:
         dev = resolve_device(args.device)
-    rank, world = (dp.rank, dp.world) if dp else (0, 1)
-    with np.load(args.batch) as f:
-        full = {k: f[k] for k in f.files}
-    B = full["text"].shape[0]
-    if B % world:
-        raise ValueError(f"batch of {B} rows does not split over {world} ranks")
-    rows = slice(rank * (B // world), (rank + 1) * (B // world))
-    batch = {k: torch.from_numpy(np.ascontiguousarray(v[rows])).to(
-        dev, torch.long if v.dtype.kind in "iu" else torch.float32) for k, v in full.items()}
-    ts = create_train_state(hp, dev)
+    batch = _rows(args.batch, grid, dev)
+    ts = create_train_state(hp, dev, grid=grid)
     if args.init:
-        ts.model.load_state_dict(torch.load(args.init, map_location=dev, weights_only=True))
-    step = make_train_step(hp, dp)
+        ts.model.load_state_dict(mesh.local_state_dict(
+            torch.load(args.init, map_location=dev, weights_only=True), ts.model, grid))
+    step = make_train_step(hp, grid)
     gen = torch.Generator(device=dev).manual_seed(hp.seed)
     grads = []  # each step's clipped-before gradient, as the optimizer receives it
-    names = [n for n, _ in ts.model.named_parameters()]
-    ts.optimizer.register_step_pre_hook(lambda opt, a, k: grads.append(
-        {n: p.grad.detach().cpu().clone() for n, p in zip(names, ts.model.parameters())}))
-    init = {k: v.detach().cpu().clone() for k, v in ts.model.state_dict().items()}
+    ts.optimizer.register_step_pre_hook(
+        lambda opt, a, k: grads.append(_logical_grads(ts.model, grid)))
+    init = {k: v.detach().cpu().clone()
+            for k, v in mesh.logical_state_dict(ts.model, grid).items()}
     before = _launches()
+    t0 = time.perf_counter()
     metrics = [step(ts, batch, gen) for _ in range(args.steps)]
-    out = {"rank": rank, "world": world, "rows": B // world,
-           "loss": [float(m["loss"]) for m in metrics],
+    return _finish(args, grid, ts.model, ts.optimizer, metrics, grads, init, before,
+                   batch["text"].shape[0], t0)
+
+
+def run_waveglow(args) -> dict:
+    """``--steps`` WaveGlow train steps on this rank's rows of the
+    ``audio``/``mel`` batch in ``--batch``, from ``--init`` (a logical
+    state dict) or random weights from the seed."""
+    from ..models.waveglow import (WaveGlow, WaveGlowConfig, init_weights,
+                                   make_waveglow_train_step)
+    from ..parallel import mesh
+    from ..training.train_state import resolve_device
+
+    grid, dev = mesh.init_distributed(None, args.device, args.backend, model=args.mesh_model)
+    if grid is None:
+        dev = resolve_device(args.device)
+    cfg = WaveGlowConfig(**json.loads(args.wg_config or "{}"))
+    model = WaveGlow(cfg)
+    if args.init:
+        model.load_state_dict(torch.load(args.init, weights_only=True))
+    else:
+        init_weights(model, torch.Generator().manual_seed(1234), end_scale=0.05)
+    if grid is not None and grid.model > 1:
+        mesh.shard_module(model, lambda n: mesh.waveglow_spec(n, cfg.n_layers), grid)
+    model = model.to(dev).train()
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4, fused=True)
+    step = make_waveglow_train_step(model, opt, clip=args.clip, grid=grid)
+    batch = _rows(args.batch, grid, dev)
+    grads = []
+    opt.register_step_pre_hook(lambda o, a, k: grads.append(_logical_grads(model, grid)))
+    init = {k: v.detach().cpu().clone()
+            for k, v in mesh.logical_state_dict(model, grid).items()}
+    t0 = time.perf_counter()
+    metrics = [step(batch["audio"], batch["mel"]) for _ in range(args.steps)]
+    return _finish(args, grid, model, opt, metrics, grads, init, None,
+                   batch["audio"].shape[0], t0)
+
+
+def _finish(args, grid, model, optimizer, metrics, grads, init, before, rows, t0) -> dict:
+    """Rank 0 saves; every rank returns its DRYRUN object (``s_per_step``:
+    the steps' wall time to their last loss on the host, first step
+    included)."""
+    from ..parallel import mesh
+
+    loss = [float(m["loss"]) for m in metrics]
+    seconds = time.perf_counter() - t0
+    state = {k: v.detach().cpu() for k, v in mesh.logical_state_dict(model, grid).items()}
+    rank = grid.rank if grid else 0
+    shards = getattr(model, "tp_shards", {})
+    out = {"rank": rank, "world": grid.world if grid else 1,
+           "model": grid.model if grid else 1, "rows": rows, "loss": loss,
+           "s_per_step": seconds / len(metrics),
            "grad_norm": [float(m["grad_norm"]) for m in metrics],
            "updated": [bool(m["updated"]) for m in metrics],
-           "launches": {k: v - before[k] for k, v in _launches().items()}}
+           "bytes": _bytes(model, optimizer),
+           "split_bytes": sum(p.numel() * p.element_size() * 3
+                              for n, p in model.named_parameters() if n in shards)}
+    if "loss_scale" in metrics[0]:
+        out["loss_scale"] = [float(m["loss_scale"]) for m in metrics]
+    if before is not None:
+        out["launches"] = {k: v - before[k] for k, v in _launches().items()}
     if rank == 0 and args.out:
         torch.save({"metrics": out, "grads": grads, "init_state_dict": init,
-                    "state_dict": {k: v.detach().cpu() for k, v in
-                                   ts.model.state_dict().items()}}, args.out)
-    mesh.barrier(dp)
+                    "state_dict": state}, args.out)
+    mesh.barrier(grid)
     return out
 
 
@@ -140,6 +225,11 @@ def main(argv=None):
     p.add_argument("--device", default=None, help="torch device (default: the card)")
     p.add_argument("--backend", default=None, help="process-group backend (default: "
                    "nccl on a card, gloo on the CPU)")
+    p.add_argument("--waveglow", action="store_true", help="WaveGlow steps (batch mode)")
+    p.add_argument("--wg-config", default=None, help="WaveGlowConfig fields as JSON")
+    p.add_argument("--mesh-model", type=int, default=1, help="WaveGlow: model ranks a row")
+    p.add_argument("--clip", type=float, default=None,
+                   help="WaveGlow: clip the gradients to this global norm")
     args = p.parse_args(argv)
     if args.make_corpus:
         make_corpus(args.workdir)
@@ -152,8 +242,11 @@ def main(argv=None):
                                 "" if args.batch else CORPUS, args.hparams or "") if s)
     hp = create_hparams(spec or None)
     try:
-        out = run_batch(args, hp) if args.batch else run_corpus(args, hp)
-        print("DRYRUN " + json.dumps(out), flush=True)
+        out = (run_waveglow(args) if args.waveglow else
+               run_batch(args, hp) if args.batch else run_corpus(args, hp))
+        # one write, so that ranks sharing a pipe do not interleave a line
+        sys.stdout.write("DRYRUN " + json.dumps(out) + "\n")
+        sys.stdout.flush()
     finally:
         mesh.shutdown()
 

@@ -10,6 +10,12 @@ without it keeps the fresh scaler of the state it is loaded into.  Orbax
 directories written by the JAX trainer need JAX and are not read.  In a
 data-parallel run rank 0 writes and every rank then meets at a barrier
 (``training.train``); every rank loads on resume, onto its own card.
+
+A checkpoint holds the logical state: under a mesh's model axis every rank
+of the row gathers the split parameters, running statistics and Adam
+moments (``logical_state``) and rank 0 writes them, so one process and
+``Synthesizer`` load it; a rank loads a checkpoint, from one process or
+from any grid, by cutting its own slices.
 """
 
 from __future__ import annotations
@@ -18,16 +24,27 @@ import os
 
 import torch
 
+from ..parallel import mesh
 from .loss_scaler import ScalerState
 from .train_state import TrainState
 
 
+def logical_state(ts: TrainState) -> dict:
+    """{"state_dict", "optimizer"}: the model's and Adam's logical state
+    (every rank of a row calls it under a model axis)."""
+    return {"state_dict": mesh.logical_state_dict(ts.model, ts.grid),
+            "optimizer": mesh.logical_optimizer_state(ts.optimizer, ts.model, ts.grid)}
+
+
 def save_checkpoint(ts: TrainState, learning_rate: float, output_dir: str,
-                    iteration: int | None = None) -> str:
+                    iteration: int | None = None, state: dict | None = None) -> str:
+    """Write ``checkpoint_{iteration}``; ``state`` is ``logical_state(ts)``
+    when the caller has it."""
     iteration = ts.step if iteration is None else iteration
     path = os.path.abspath(os.path.join(output_dir, f"checkpoint_{iteration}"))
+    state = logical_state(ts) if state is None else state
     payload = {"iteration": int(iteration), "learning_rate": float(learning_rate),
-               "state_dict": ts.model.state_dict(), "optimizer": ts.optimizer.state_dict()}
+               "state_dict": state["state_dict"], "optimizer": state["optimizer"]}
     if ts.scaler is not None:
         payload["scaler"] = [t.detach().cpu() for t in ts.scaler]
     torch.save(payload, path)
@@ -38,13 +55,18 @@ def _load(path: str, ts: TrainState) -> dict:
     return torch.load(path, map_location=ts.device, weights_only=True)
 
 
+def _load_model(ts: TrainState, state_dict: dict) -> None:
+    ts.model.load_state_dict(mesh.local_state_dict(state_dict, ts.model, ts.grid))
+
+
 def load_checkpoint(path: str, ts: TrainState) -> tuple[TrainState, int, float]:
     """Full resume: weights, optimizer, iteration (reference
     train.py:100-110) and, when both the checkpoint and ``ts`` have one, the
     loss scaler; ``ts.step`` becomes the saved iteration."""
     payload = _load(path, ts)
-    ts.model.load_state_dict(payload["state_dict"])
-    ts.optimizer.load_state_dict(payload["optimizer"])
+    _load_model(ts, payload["state_dict"])
+    ts.optimizer.load_state_dict(mesh.local_optimizer_state(payload["optimizer"], ts.model,
+                                                            ts.grid))
     ts.step = int(payload["iteration"])
     if ts.scaler is not None and payload.get("scaler") is not None:
         ts.scaler = ScalerState(*(saved.to(ts.device, old.dtype)
@@ -54,7 +76,7 @@ def load_checkpoint(path: str, ts: TrainState) -> tuple[TrainState, int, float]:
 
 def warm_start(path: str, ts: TrainState) -> TrainState:
     """Load the model weights only and keep a fresh optimizer (train.py:92-97)."""
-    ts.model.load_state_dict(_load(path, ts)["state_dict"])
+    _load_model(ts, _load(path, ts)["state_dict"])
     return ts
 
 

@@ -20,10 +20,13 @@ iterations the queue is drained, the averaged validation loss printed and
 a checkpoint written; ``-c`` resumes from one (the iteration count
 continues).
 
-Under torchrun each process trains one data-parallel rank
-(``parallel.mesh``): its shard of every epoch, a batch of ``batch_size //
-world``, global batchnorm statistics and random draws, one gradient
-all-reduce a step; rank 0 prints, logs and writes checkpoints.  Runs on
+Under torchrun each process is one rank of a (data, model) grid
+(``parallel.mesh``; ``--hparams mesh_model=M`` splits the weights of
+``mesh.tacotron2_spec`` over M ranks, the data axis takes the rest): the
+ranks of one data index read that index's shard of every epoch, a batch
+of ``batch_size // data``; batchnorm statistics and random draws are the
+global batch's; one gradient all-reduce a step over the data ranks; rank
+0 prints, logs and writes the logical checkpoints.  Runs on
 the card unless ``--device cpu``.  The logs are TensorBoard events (with
 tensorboardX) and CSV files (``training.logger``).  ``--hparams
 fp16_run=True`` trains in float16 with the dynamic loss scaler; the
@@ -45,7 +48,8 @@ from ..config import create_hparams
 from ..data.dataset import DataLoader, TextMelDataset
 from ..data.prefetch import prefetch
 from ..parallel import mesh
-from .checkpoint import load_checkpoint, save_checkpoint, warm_start as warm_start_fn
+from .checkpoint import (load_checkpoint, logical_state, save_checkpoint,
+                         warm_start as warm_start_fn)
 from .logger import Tacotron2Logger
 from .train_state import (create_train_state, make_eval_step, make_train_step,
                           resolve_device)
@@ -54,8 +58,9 @@ _LONG_KEYS = ("text", "input_lengths", "output_lengths")
 
 
 def prepare_dataloaders(hp, device=None, shard: tuple[int, int] = (0, 1)):
-    """Train and validation loaders.  ``shard=(rank, world)`` gives this
-    rank a disjoint 1/world slice of every epoch with a batch of
+    """Train and validation loaders.  ``shard=(rank, world)`` gives data
+    rank ``rank`` of ``world`` (every model rank of its row alike) a
+    disjoint 1/world slice of every epoch with a batch of
     ``hp.batch_size // world`` (the global batch stays ``hp.batch_size``).
     With ``hp.fixed_batch_shapes``, or more than one rank, every train
     batch is padded to the train set's longest text and mel, rounded up to
@@ -143,18 +148,17 @@ def train(output_directory, log_directory, checkpoint_path, warm_start, hp, devi
           backend: str | None = None):
     """Train ``hp.epochs`` epochs; returns (train state, next iteration).
 
-    Under torchrun's environment the process joins the data-parallel group
+    Under torchrun's environment the process joins the grid's groups
     first (``parallel.mesh.init_distributed``; ``backend`` overrides NCCL
     on a card)."""
-    dp, dev = mesh.init_distributed(hp, device, backend)
-    if dp is None:
+    grid, dev = mesh.init_distributed(hp, device, backend)
+    if grid is None:
         dev = resolve_device(device)
-    rank, world = (dp.rank, dp.world) if dp is not None else (0, 1)
-    lead = rank == 0
+    lead = grid is None or grid.rank == 0
     os.makedirs(output_directory, exist_ok=True)
     torch.manual_seed(hp.seed)
     generator = torch.Generator(device=dev).manual_seed(hp.seed)
-    ts = create_train_state(hp, dev)
+    ts = create_train_state(hp, dev, grid=grid)
     learning_rate = hp.learning_rate
     iteration = 0
     if checkpoint_path:
@@ -167,10 +171,11 @@ def train(output_directory, log_directory, checkpoint_path, warm_start, hp, devi
                 for group in ts.optimizer.param_groups:
                     group["lr"] = saved_lr
             iteration += 1
-    if world > 1:
-        mesh.broadcast_module(ts.model)
-    train_step, eval_step = make_train_step(hp, dp), make_eval_step(hp)
-    train_loader, val_loader = prepare_dataloaders(hp, dev, shard=(rank, world))
+    if grid is not None:
+        mesh.broadcast_module(ts.model, grid)
+    train_step, eval_step = make_train_step(hp, grid), make_eval_step(hp)
+    shard = (grid.data_index, grid.data) if grid is not None else (0, 1)
+    train_loader, val_loader = prepare_dataloaders(hp, dev, shard=shard)
     epoch_offset = max(0, iteration // max(len(train_loader), 1))
     logger = (Tacotron2Logger(os.path.join(output_directory, log_directory))
               if log_directory and lead else None)
@@ -237,16 +242,18 @@ def train(output_directory, log_directory, checkpoint_path, warm_start, hp, devi
                 drain_all()
                 # every rank validates, so the ranks' generators stay alike
                 val_loss, val_aux, last = validate(eval_step, ts, val_loader, generator)
+                state = logical_state(ts)  # every rank: a row gathers its slices
                 if lead:
                     print(f"Validation loss {iteration}: {val_loss:.6f}", flush=True)
                     if logger and last is not None:
                         vbatch, vout = last
-                        logger.log_validation(val_loss, ts.model.state_dict(), vout,
+                        logger.log_validation(val_loss, state["state_dict"], vout,
                                               (vbatch.mel, vbatch.gate), iteration,
                                               components=val_aux)
-                    ckpt = save_checkpoint(ts, learning_rate, output_directory, iteration)
+                    ckpt = save_checkpoint(ts, learning_rate, output_directory, iteration,
+                                           state=state)
                     print(f"Saved checkpoint: {ckpt}", flush=True)
-                mesh.barrier(dp)
+                mesh.barrier(grid)
                 # validation and the save are not steps: leave them out of s/it
                 last_log_t = time.perf_counter()
             iteration += 1

@@ -17,9 +17,14 @@ clip and the non-finite skip are decided on the device, as JAX's
 ``jnp.where(ok, new, old)``.  A non-finite loss or gradient norm leaves the
 parameters, Adam's moments and step count, and the batchnorm running
 statistics (snapshotted before the forward) as they were; the iteration
-count still advances.  In a data-parallel run (``parallel.mesh``) the step
-computes what one process computes on the global batch, and the skip is
-decided from the all-reduced loss and norm, alike on every rank.
+count still advances.  On a (data, model) grid (``parallel.mesh``) the
+step computes what one process computes on the global batch: the
+gradients are summed over the data ranks of the rank's column, whether the
+model axis splits them or not (a whole weight's gradient is already equal
+across a row); the global norm is the logical tree's, each whole weight
+counted once and the split ones' squares summed over the row; so the clip
+and the skip are decided from one loss and one norm, alike on every rank,
+and a rank whose slice alone overflows makes every rank skip.
 
 ``fp16_run`` (JAX ``train_state.py:54-211``, reference
 fp16_optimizer.py:51-383) computes in float16 (``compute_dtype`` and the
@@ -62,6 +67,7 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     step: int = 0
     scaler: ScalerState | None = None  # fp16_run only: the loss scale and its count
+    grid: mesh.Grid | None = None      # with a model axis the model holds its slices
 
     @property
     def device(self) -> torch.device:
@@ -93,17 +99,24 @@ def run_hparams(hp):
     return hp.replace(compute_dtype="float16") if hp.fp16_run else hp
 
 
-def create_train_state(hp, device=None, learning_rate=None, seed=None) -> TrainState:
+def create_train_state(hp, device=None, learning_rate=None, seed=None,
+                       grid: mesh.Grid | None = None) -> TrainState:
     """A model with random weights from ``seed`` (default ``hp.seed``) on
     ``device`` (default the card), a fresh optimizer and, under
-    ``fp16_run``, a fresh loss scaler; the model computes in float16 then."""
+    ``fp16_run``, a fresh loss scaler; the model computes in float16 then.
+    With a ``grid`` that has a model axis the model keeps this rank's
+    slices of the weights ``mesh.tacotron2_spec`` splits (cut on the host
+    from the one logical initialisation), and so does Adam."""
     hp = run_hparams(hp)
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(hp.seed if seed is None else seed)
-    model = init_weights(Tacotron2(hp), gen).to(dev)
+    model = init_weights(Tacotron2(hp), gen)
+    if grid is not None and grid.model > 1:
+        mesh.shard_module(model, mesh.tacotron2_spec, grid)
+    model = model.to(dev)
     scaler = make_loss_scaler(hp)
     return TrainState(model, make_optimizer(model, hp, learning_rate),
-                      scaler=scaler.init(dev) if scaler is not None else None)
+                      scaler=scaler.init(dev) if scaler is not None else None, grid=grid)
 
 
 def batch_to_device(batch, device) -> dict:
@@ -125,12 +138,6 @@ def _split(batch: dict, accum: int) -> list[dict]:
             for i in range(accum)]
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """The global L2 norm of ``tensors`` as a device scalar (float32)."""
-    norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
-
-
 def optimizer_update(ts: TrainState, hp, loss) -> tuple[torch.Tensor, torch.Tensor]:
     """Clip the gradients to ``grad_clip_thresh`` by their global norm and
     take one Adam step, unless the loss (a device scalar or a float) or the
@@ -144,7 +151,8 @@ def optimizer_update(ts: TrainState, hp, loss) -> tuple[torch.Tensor, torch.Tens
             p.grad = torch.zeros_like(p)
         elif not p.grad.is_contiguous():
             p.grad = p.grad.contiguous()
-    norm = global_norm([p.grad for p in params])
+    norm = mesh.global_norm([p.grad for p in params], mesh.sharded_parameters(ts.model),
+                            ts.grid)
     ok = torch.isfinite(norm)
     if isinstance(loss, torch.Tensor):
         ok = ok & torch.isfinite(loss)
@@ -171,7 +179,7 @@ def _restore_unless(ok, buffers: list[torch.Tensor], saved: torch.Tensor) -> Non
         torch._foreach_copy_(buffers, _unflatten_dense_tensors(kept, buffers))
 
 
-def make_train_step(hp, dp: mesh.DataParallel | None = None):
+def make_train_step(hp, grid: mesh.Grid | None = None):
     """Returns ``train_step(ts, batch, generator) -> metrics``, which
     updates ``ts`` in place.  The metrics are device scalars (``loss``,
     ``grad_norm``, the ``AUX_KEYS`` and ``updated``) and ``kl_weight`` (a
@@ -181,11 +189,12 @@ def make_train_step(hp, dp: mesh.DataParallel | None = None):
     micro-batches under one update whose gradient matches the big batch:
     mel and gate terms are means, while the KL is a sum over the batch, so
     each micro-batch's KL is weighted by ``a`` before the 1/a average;
-    batchnorm running statistics chain through the micro-batches.  With
-    ``dp`` (world ``w``) the same rule spans the ranks: each back-propagates
-    ``recon + kl_weight * w * a * kl`` of its rows, the gradients and the
-    metrics are summed over the ranks in one all-reduce, and the gradient
-    is divided by ``w * a``; the metrics are those of the global batch.
+    batchnorm running statistics chain through the micro-batches.  On a
+    ``grid`` of ``w`` data ranks the same rule spans them: each
+    back-propagates ``recon + kl_weight * w * a * kl`` of its rows, the
+    gradients and the metrics are summed over the column in one
+    all-reduce, and the gradient is divided by ``w * a``; the metrics are
+    those of the global batch, alike on every rank.
 
     Under ``fp16_run`` each rank back-propagates that loss times the
     scale, the gradients are divided by the scale before their norm (JAX
@@ -195,7 +204,7 @@ def make_train_step(hp, dp: mesh.DataParallel | None = None):
     metrics add ``loss_scale``, the scale the step used."""
     scaler = make_loss_scaler(hp)
     accum = max(1, int(getattr(hp, "grad_accum_steps", 1)))
-    world = dp.world if dp is not None else 1
+    world = grid.data if grid is not None else 1
 
     def train_step(ts: TrainState, batch, generator=None):
         model, opt = ts.model, ts.optimizer
@@ -206,7 +215,7 @@ def make_train_step(hp, dp: mesh.DataParallel | None = None):
         saved = torch.cat([b.reshape(-1) for b in buffers]) if buffers else None
         opt.zero_grad(set_to_none=True)
         sums = None
-        with mesh.scope(dp):
+        with mesh.scope(grid):
             for micro in (_split(batch, accum) if accum > 1 else (batch,)):
                 out = model(micro, train=True, generator=generator)
                 _, aux = tacotron2_vae_loss(out, micro["mel"], micro["gate"], ts.step, hp)
@@ -222,7 +231,7 @@ def make_train_step(hp, dp: mesh.DataParallel | None = None):
         grads = [p.grad for p in params]
         if world > 1:
             # the gradients and the metric sums in one flat all-reduce
-            mesh.all_reduce_flat(grads + [sums])
+            mesh.all_reduce_flat(grads + [sums], grid.data_group)
             torch._foreach_div_(grads, world * accum)
         elif accum > 1:
             torch._foreach_div_(grads, accum)
@@ -258,13 +267,15 @@ def make_eval_step(hp):
     forward and loss (reference train.py:122-147): running batchnorm
     statistics, no dropout or VAE sampling, but the prenet's dropout stays
     on as in the reference's eval (model.py:101).  The model computes in
-    the type it was made with (float16 under ``fp16_run``)."""
+    the type it was made with (float16 under ``fp16_run``).  Every rank
+    computes the whole batch; with a model axis over its row."""
 
     @torch.no_grad()
     def eval_step(ts: TrainState, batch, generator=None):
         if not isinstance(batch, dict):
             batch = batch_to_device(batch, ts.device)
-        out = ts.model(batch, train=False, generator=generator)
+        with mesh.scope(ts.grid.row() if ts.grid is not None else None):
+            out = ts.model(batch, train=False, generator=generator)
         total, aux = tacotron2_vae_loss(out, batch["mel"], batch["gate"], ts.step, hp)
         return total, aux, out
 

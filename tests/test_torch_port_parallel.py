@@ -21,9 +21,9 @@ timeout of at most 120 s.
   1e-4, parameters atol 1e-4 (the JAX test's own limits,
   tests/test_train.py:222-225) wherever the gradient is above rounding
   noise, and 2 * steps * lr elsewhere, as above.  Found: loss 3.8e-6,
-  parameters 3.9e-7 there and 2.1e-3 elsewhere;
-- ``mesh_model=2`` raises, naming the ROADMAP item; ``mesh_data`` other
-  than -1 or the world size raises.
+  parameters 3.9e-7 there and 2.1e-3 elsewhere.
+
+The model axis has its own tests (tests/test_torch_port_tp.py).
 """
 
 import os
@@ -31,14 +31,11 @@ import subprocess
 import sys
 
 import numpy as np
-import pytest
 import torch
 
 from tacotron2_vae_torch import convert
 from tacotron2_vae_torch.config import create_hparams
-from tacotron2_vae_torch.parallel import mesh
 from tacotron2_vae_torch.tools import multihost_dryrun as mh
-from tacotron2_vae_torch.training import train as tr
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 120
@@ -188,15 +185,3 @@ def test_two_ranks_match_the_jax_mesh_step(tmp_path, monkeypatch):
         err = (port["state_dict"][name] - torch.as_tensor(np.asarray(want[name]))).abs()
         assert float(torch.where(signal, err, 0.0).max()) <= 1e-4, name
         assert float(err.max()) <= 2 * 2 * hp.learning_rate, name
-
-
-def test_tensor_parallel_axis_raises(tmp_path):
-    hp = create_hparams(mh.TINY + ",mesh_model=2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mesh.init_distributed(hp, "cpu")
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        tr.train(str(tmp_path / "out"), "", None, False, hp, device="cpu")
-    with pytest.raises(ValueError, match="world size"):
-        mesh.check_mesh(create_hparams("mesh_data=3"), 2)
-    mesh.check_mesh(create_hparams("mesh_data=2"), 2)
-    mesh.check_mesh(create_hparams("mesh_data=-1"), 2)

@@ -177,7 +177,8 @@ def test_import_leaves_jax_out_with_training_modules():
         "        'tacotron2_vae_torch.utils', 'tacotron2_vae_torch.utils.profiling',\n"
         "        'tacotron2_vae_torch.tools.multihost_dryrun', 'tacotron2_vae_torch.tools.train_turns',\n"
         "        'tacotron2_vae_torch.training.loss_scaler', 'tacotron2_vae_torch.training.logger',\n"
-        "        'tacotron2_vae_torch.training.checkpoint', 'tacotron2_vae_torch.utils.plotting'}\n"
+        "        'tacotron2_vae_torch.training.checkpoint', 'tacotron2_vae_torch.utils.plotting',\n"
+        "        'tacotron2_vae_torch.parallel.tp', 'tacotron2_vae_torch.tools.train_waveglow'}\n"
         "assert need <= set(mods), need - set(mods)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tacotron2_vae_tpu'))]\n"
         "assert not bad, bad\n"

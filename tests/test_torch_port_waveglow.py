@@ -215,12 +215,13 @@ def test_train_steps_match_optax_and_lower_the_loss(params, data):
     step_j = jax.jit(jwg.make_waveglow_train_step(CFG_J, opt_j))
     pj, oj = params, opt_j.init(params)
     model = port_model(params)
-    step = twg.make_waveglow_train_step(model, torch.optim.Adam(model.parameters(), lr=1e-3))
+    step = twg.make_waveglow_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=1e-3, fused=True))
     losses, losses_j = [], []
     for _ in range(5):
         out = step(torch.from_numpy(audio), torch.from_numpy(mel))
-        assert out["updated"] and np.isfinite(out["grad_norm"])
-        losses.append(out["loss"])
+        assert bool(out["updated"]) and np.isfinite(float(out["grad_norm"]))
+        losses.append(float(out["loss"]))
         oj, pj, lj = step_j(oj, pj, jnp.asarray(audio), jnp.asarray(mel))
         losses_j.append(float(lj))
     np.testing.assert_allclose(losses, losses_j, **F32)
@@ -230,15 +231,15 @@ def test_train_steps_match_optax_and_lower_the_loss(params, data):
 def test_train_step_skips_a_non_finite_update(params, data):
     audio, mel, _ = data
     model = port_model(params)
-    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3, fused=True)
     step = twg.make_waveglow_train_step(model, opt)
-    assert step(torch.from_numpy(audio), torch.from_numpy(mel))["updated"]
+    assert bool(step(torch.from_numpy(audio), torch.from_numpy(mel))["updated"])
     before = {k: v.clone() for k, v in model.state_dict().items()}
     adam = [{k: v.clone() for k, v in s.items()} for s in opt.state.values()]
     bad = audio.copy()
     bad[0, 5] = np.nan
     out = step(torch.from_numpy(bad), torch.from_numpy(mel))
-    assert not out["updated"] and not np.isfinite(out["loss"])
+    assert not bool(out["updated"]) and not np.isfinite(float(out["loss"]))
     for k, v in model.state_dict().items():
         assert torch.equal(v, before[k]), k
     for s, saved in zip(opt.state.values(), adam):
