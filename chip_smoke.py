@@ -11,6 +11,7 @@
     python3 chip_smoke.py --tp --nccl  # the same on 4 cards, a rank a card over NCCL, and
                                        # train_waveglow at --mesh 2,2 (needs 4 cards)
     python3 chip_smoke.py --tools    # build K1-K4, then only the three tools (phase 6)
+    python3 chip_smoke.py --studies  # build K1-K4, then only the three study tools (phase 7)
 
 1. Environment: torch/CUDA versions, the card's name and power limit.
 2. Kernels: builds every CUDA kernel of the port from ``csrc/`` (one nvcc
@@ -45,8 +46,8 @@
    checkpoint and a resume (K2 from the loader's threads), and again under
    ``fp16_run`` (the resumed state holds the saved loss scale); ``train()`` at
    B=64 on 1024 clips with the reference corpus's texts, its input
-   pipeline and metric window at their defaults against all at 1, in
-   turns, with the card's busy share from a trace (``train_pipeline``);
+   pipeline and metric window at their defaults against all at 1, one
+   run each, with the card's busy share from a trace (``train_pipeline``);
    data parallel: ``train()`` under torchrun's environment at world 1 on
    NCCL against the plain run, and two gloo ranks on the card against one
    process, losses and state after 3 steps (``train_dp``, through
@@ -89,10 +90,31 @@
    held-out NLL per checkpoint and three finite copy-synthesis rows.
    Prints each tool's wall time and the phase's beside the card's name and
    power limit.
+7. Studies, each through its ``main`` on the card at full model width,
+   under a temporary directory (never the repo's ``res/`` or
+   ``samples/``): ``tools/make_result_assets.py --steps 250`` (B=16, S=32,
+   bf16; one validation point): K3 and K4 launch, every loss finite, the
+   loss at step 250 below the loss at step 25; ``tools/curves_run.py all``
+   for ``STUDY_CURVES_STEPS`` = 16 steps (two epochs of 8 at B=64 on the
+   full 512 + 64-clip corpus, a checkpoint at step 8), vocoded by the
+   export ``waveglow_eval_run`` left (``--studies`` alone: a random
+   full-width WaveGlow): K1-K4 launch, ``metrics.csv`` has 16 rows, the
+   checkpoint exists, the assets summary has the JAX tool's keys (read
+   from its source) with finite numbers, the four recipes' files exist
+   and every wav is finite; ``tools/bench_pooled.py --items 64 --steps 8
+   --batch 16`` with ``mel_cache=False`` (so its loader featurises each
+   clip through K2; the bulk mel cache uses the chunked DFT product):
+   K2-K4 launch, ``padding_saving`` > 1, steps/s finite and > 0 pooled
+   and unpooled.  Rows in ``chiprun_out/chip_smoke_studies.json``; each
+   tool's wall time beside the card line.
 
-Every launch counter is zeroed just before its path runs and read just
-after; each kernel must have launched.  Prints one JSON line per check,
-train phase and request, the card line, the ``kernels`` JSON line, and last
+Each phase of the whole run prints ``{"phase_s": {"name": ..., "s": ...}}``
+when it ends (the build first, the total last; ``PERF.md`` keeps them: the
+whole script must stay well inside its 1200 s limit, so the longest earlier
+path is cut in depth before a new phase is added).  Every launch counter
+is zeroed just before its path runs and read just after; each kernel must
+have launched.  Prints one JSON line per check, train phase and request,
+the card line, the ``kernels`` JSON line, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero on any failure and when
 no CUDA card is present.  Long logs go to ``chiprun_out/``.
 """
@@ -1251,7 +1273,9 @@ PIPE_WARM = 3         # iterations before the steady s/it and the trace
 PIPE_TRACED = 5       # iterations under utils.profiling.trace
 # (prefetch_depth, log_fetch_window, num_workers): the defaults, then all 1
 PIPE_CONFIGS = {"defaults": (2, 16, 4), "serial": (1, 1, 1)}
-PIPE_ORDER = ("defaults", "serial", "serial", "defaults")
+# one run of each, then the traced run: two turns of each cost ~40 s more
+# on an H100 (PERF.md section 6) and the script has a time limit
+PIPE_ORDER = ("defaults", "serial")
 
 
 def train_pipeline(hp, device, tmp):
@@ -1259,8 +1283,8 @@ def train_pipeline(hp, device, tmp):
     corpus of ``PIPE_ITERS`` batches (``profile_train.synthetic_corpus``:
     texts of the reference corpus's train filelist, clips as long as their
     texts), mel cache warmed first: the defaults (prefetch 2 deep, metrics
-    fetched 16 steps at a time, 4 loader workers) against all three at 1,
-    in turns (defaults, serial, serial, defaults).  Each run's steady s/it
+    fetched 16 steps at a time, 4 loader workers) against all three at 1
+    (``PIPE_ORDER``).  Each run's steady s/it
     (CUDA events after each queued step, from iteration ``PIPE_WARM``),
     batch shapes, K2/K3/K4 launches and K3/K4 graphs instantiated and
     updated per iteration; then one run with the defaults whose iterations
@@ -2280,6 +2304,192 @@ def tools_phase(model, hp, tmp, card):
         raise AssertionError(f"tool checks failed: {failures}")
     return row, launches
 
+# The three study tools (studies_phase), at reduced depths: make_result_assets
+# to its first validation point; curves_run for two epochs of 8 steps at
+# B=64 on the full corpus, a checkpoint at step 8; bench_pooled on 64 clips.
+STUDY_ASSETS_STEPS = 250
+STUDY_CURVES_STEPS = 16
+STUDY_CURVES_CKPT = 8
+STUDY_BENCH_ARGS = ("--items", "64", "--steps", "8", "--batch", "16")
+
+
+def _jax_tool_summary_keys(tool, function):
+    """The keys of the ``summary`` dict in ``function`` of the JAX package's
+    ``tools/<tool>.py``, read from its source (nothing of it is imported)."""
+    import ast
+
+    with open(os.path.join(ROOT, "tools", f"{tool}.py"), encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.FunctionDef) and node.name == function:
+            for sub in ast.walk(node):
+                if (isinstance(sub, ast.Assign) and isinstance(sub.value, ast.Dict)
+                        and getattr(sub.targets[0], "id", None) == "summary"):
+                    return [k.value for k in sub.value.keys]
+    raise AssertionError(f"no summary dict in tools/{tool}.py {function}")
+
+
+def _finite_wav(path):
+    import numpy as np
+    from scipy.io import wavfile
+
+    _sr, wav = wavfile.read(path)
+    return wav.size > 0 and bool(np.isfinite(wav.astype(np.float64)).all())
+
+
+def studies_phase(tmp, card, waveglow):
+    """The port's study tools through their ``main`` on the card, at full
+    model width, under ``tmp``: ``make_result_assets`` (K3, K4),
+    ``curves_run all`` with ``waveglow`` as ``T2V_WAVEGLOW`` (K1-K4) and
+    ``bench_pooled`` with the mel cache off, so its loader featurises each
+    clip through K2 (K2-K4).  Each tool's counters are zeroed just before
+    it; each of its kernels must launch.  Returns (row, launches summed)."""
+    import torch
+    from tacotron2_vae_torch.ops import decoder_loop as dl
+    from tacotron2_vae_torch.ops import stft_mel as sm
+    from tacotron2_vae_torch.ops import teacher_fwd as tf
+    from tacotron2_vae_torch.tools import bench_pooled, curves_run, make_result_assets
+
+    counters = {"K1": dl.decode_loop, "K2": sm.mel_spectrogram_fused,
+                "K3": tf.teacher_fwd, "K4": tf.teacher_bwd}
+
+    def run(name, fn, kernels, depth):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        row = {"phase": f"study_{name}", "wall_s": time.perf_counter() - t0, "card": card,
+               "depth": depth, "launches": {k: counters[k].launches for k in counters}}
+        missing = [k for k in kernels if row["launches"][k] < 1]
+        if missing:
+            failures.append(f"{name} did not launch {missing}: {row['launches']}")
+        torch.cuda.empty_cache()
+        return out, row
+
+    failures, rows = [], []
+    t_phase = time.perf_counter()
+
+    res = os.path.join(tmp, "result_assets")
+    summary, row = run("make_result_assets", lambda: make_result_assets.main(
+        ["--steps", str(STUDY_ASSETS_STEPS), "--out", res]), ("K3", "K4"),
+        {"steps": STUDY_ASSETS_STEPS, "batch": 16, "seq": 32, "compute_dtype": "bfloat16"})
+    with open(os.path.join(res, "curves.json")) as f:
+        curves = json.load(f)
+    losses = curves["train"]["loss"] + curves["val"]["loss"]
+    row.update(summary=summary, loss_25=curves["train"]["loss"][0],
+               loss_250=curves["train"]["loss"][-1], val_loss=curves["val"]["loss"])
+    if list(summary) != _jax_tool_summary_keys("make_result_assets", "main"):
+        failures.append(f"make_result_assets summary keys {list(summary)}")
+    if not (losses and all(math.isfinite(x) for x in losses)):
+        failures.append(f"make_result_assets: a loss is not finite: {losses}")
+    elif not row["loss_250"] < row["loss_25"] or len(curves["val"]["loss"]) != 1:
+        failures.append(f"make_result_assets: loss at 250 {row['loss_250']} not below "
+                        f"loss at 25 {row['loss_25']}, or validations {curves['val']}")
+    print(json.dumps(row), flush=True)
+    rows.append(row)
+
+    work, cres, csam = (os.path.join(tmp, d) for d in ("curves", "curves_res", "curves_samples"))
+    saved = {k: os.environ.get(k) for k in ("T2V_STEPS_TARGET", "T2V_WAVEGLOW")}
+    os.environ.update(T2V_STEPS_TARGET=str(STUDY_CURVES_STEPS), T2V_WAVEGLOW=waveglow)
+    try:
+        report, row = run("curves_run", lambda: curves_run.main(
+            ["all", "--workdir", work, "--res", cres, "--samples", csam,
+             "--hparams", f"iters_per_checkpoint={STUDY_CURVES_CKPT}"]),
+            ("K1", "K2", "K3", "K4"),
+            {"T2V_STEPS_TARGET": STUDY_CURVES_STEPS, "batch": 64,
+             "iters_per_checkpoint": STUDY_CURVES_CKPT, "corpus": "512 + 64 clips"})
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    assets = report["assets"]
+    with open(os.path.join(work, "out", "logs", "metrics.csv")) as f:
+        iters = [int(line.split(",")[0]) for line in f.readlines()[1:]]
+    interp = [f"interp_sad{r:.2f}_hap{1 - r:.2f}.wav" for r in (1.0, 0.64, 0.34, 0.0)]
+    want_samples = {"README.md", "latents.npz", "ref_conditioned.wav", "mix.wav", *interp}
+    wavs = [n for n in report["samples"] if n.endswith(".wav")]
+    row.update(iterations=len(iters), checkpoints=report["checkpoints"], assets=assets,
+               samples=report["samples"])
+    if iters != list(range(STUDY_CURVES_STEPS)):
+        failures.append(f"curves_run metrics.csv iterations {iters}")
+    if f"checkpoint_{STUDY_CURVES_CKPT}" not in report["checkpoints"]:
+        failures.append(f"curves_run checkpoints {report['checkpoints']}")
+    numbers = [assets.get(k) for k in ("steps", "batch", "final_train_loss_ema",
+                                       "final_recon_loss_ema", "final_val_loss", "kl_final_ema")]
+    # the run ends before the priced region (curves_run.PRICED_AFTER): no post-lag KL
+    if (list(assets) != _jax_tool_summary_keys("curves_run", "run_assets")
+            or not all(isinstance(v, (int, float)) and math.isfinite(v) for v in numbers)
+            or assets["steps"] != STUDY_CURVES_STEPS or assets["kl_postlag_max_ema"] is not None):
+        failures.append(f"curves_run assets summary: {assets}")
+    if not want_samples <= set(report["samples"]) or not all(
+            _finite_wav(os.path.join(csam, n)) for n in wavs):
+        failures.append(f"curves_run samples {report['samples']}")
+    print(json.dumps(row), flush=True)
+    rows.append(row)
+
+    bench, row = run("bench_pooled", lambda: bench_pooled.main(
+        [*STUDY_BENCH_ARGS, "--hparams", "mel_cache=False"]), ("K2", "K3", "K4"),
+        {"args": " ".join(STUDY_BENCH_ARGS), "hparams": "mel_cache=False"})
+    row.update(result=bench)
+    if not bench["padding_saving"] > 1:
+        failures.append(f"bench_pooled padding_saving {bench['padding_saving']}")
+    for tag in ("pooled", "unpooled"):
+        sps = bench[f"steps_per_sec_{tag}"]
+        if not (math.isfinite(sps) and sps > 0):
+            failures.append(f"bench_pooled steps_per_sec_{tag} {sps}")
+    print(json.dumps(row), flush=True)
+    rows.append(row)
+
+    launches = {k: sum(r["launches"][k] for r in rows) for k in counters}
+    phase = {"phase": "studies", "wall_s": time.perf_counter() - t_phase, "card": card,
+             "tools_wall_s": {r["phase"][6:]: r["wall_s"] for r in rows},
+             "launches": launches}
+    print(json.dumps(phase), flush=True)
+    for r in rows:
+        print(f"{r['phase']}: {r['wall_s']:.1f} s | {card}", flush=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_studies.json"), "w") as f:
+        json.dump({"rows": rows, "studies": phase}, f, indent=1, default=float)
+    if failures:
+        raise AssertionError(f"study checks failed: {failures}")
+    return phase, launches
+
+
+def studies_alone(tmp, card):
+    """``studies_phase`` with a full-width random WaveGlow exported into
+    ``tmp`` (the full run hands it ``waveglow_eval_run``'s export)."""
+    from tacotron2_vae_torch.tools import train_waveglow
+
+    wg = random_waveglow()
+    pkl = os.path.join(tmp, "wg_random.pkl")
+    train_waveglow.export(wg.state_dict(), wg.cfg, pkl, "float32")
+    return studies_phase(tmp, card, pkl)
+
+
+PHASE_S: dict = {}   # wall seconds of each phase of main(), in order
+
+
+def timed(name, fn, *args, **kwargs):
+    """Run one phase of ``main``, print ``{"phase_s": {"name": ..., "s": ...}}``
+    for it and keep its time in ``PHASE_S``.  A failure propagates."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    PHASE_S[name] = time.perf_counter() - t0
+    print(json.dumps({"phase_s": {"name": name, "s": PHASE_S[name]}}), flush=True)
+    return out
+
+
+def in_tmp(fn, *args):
+    """``fn(*args, tmp)`` in a temporary directory, then the card's cache emptied."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = fn(*args, tmp)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     import torch
@@ -2300,7 +2510,7 @@ def main() -> int:
              ["decoder_loop", "stft_mel", "teacher_fwd", "teacher_bwd"] if "--fp16" in sys.argv[1:]
              else ["stft_mel", "teacher_fwd", "teacher_bwd"] if "--tp" in sys.argv[1:]
              else ["decoder_loop", "stft_mel", "teacher_fwd", "teacher_bwd"]
-             if "--tools" in sys.argv[1:]
+             if "--tools" in sys.argv[1:] or "--studies" in sys.argv[1:]
              else ["decoder_loop", "stft_mel", "teacher_fwd", "teacher_bwd", "reshape_probe"])
     logs = _build.build(names, verbose=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
@@ -2333,6 +2543,12 @@ def main() -> int:
         print(f"chip_smoke --tools: {time.perf_counter() - t0:.1f} s in all | {card}",
               flush=True)
         return 0
+    if "--studies" in sys.argv[1:]:  # the three study tools alone
+        with tempfile.TemporaryDirectory() as tmp:
+            timed("studies", studies_alone, tmp, card)
+        print(f"chip_smoke --studies: {time.perf_counter() - t0:.1f} s in all | {card}",
+              flush=True)
+        return 0
     if "--k34" in sys.argv[1:]:  # the recurrence kernels' checks alone
         k34_phase(model, device)
         return 0
@@ -2347,43 +2563,38 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             train_entry_fp16(hp, device, tmp)
         return 0
-    report, rows = kernels_phase(model, hp, device)
-    k56, k56_rows = k56_phase(device)
+    PHASE_S["build"] = time.perf_counter() - t0
+    print(json.dumps({"phase_s": {"name": "build", "s": PHASE_S["build"]}}), flush=True)
+    report, rows = timed("kernels", kernels_phase, model, hp, device)
+    k56, k56_rows = timed("k56", k56_phase, device)
     report.update(k56)
-    k34, k34_rows = k34_phase(model, device)
-    steady = steady_steps(hp, device)
+    k34, k34_rows = timed("k34", k34_phase, model, device)
+    steady = timed("steady_steps", steady_steps, hp, device)
     torch.cuda.empty_cache()
-    fp16 = train_fp16(hp, device)
+    fp16 = timed("train_fp16", train_fp16, hp, device)
     torch.cuda.empty_cache()
+    entry = timed("train_entry", in_tmp, train_entry, hp, device)
+    entry16 = timed("train_entry_fp16", in_tmp, train_entry_fp16, hp, device)
+    pipeline = timed("train_pipeline", in_tmp, train_pipeline, hp, device)
+    dp = timed("train_dp", in_tmp, train_dp, hp, device)
+    tp = timed("train_tp", in_tmp, train_tp, model, hp, device)
+    results, launches = timed("serve", in_tmp, serve_phase, model, hp, device)
     with tempfile.TemporaryDirectory() as tmp:
-        entry = train_entry(hp, device, tmp)
+        tools, tool_launches = timed("tools", tools_phase, model, hp, tmp, card)
+        torch.cuda.empty_cache()
+        # curves_run vocodes with the export waveglow_eval_run leaves in tmp
+        studies, study_launches = timed("studies", studies_phase, tmp, card,
+                                        os.path.join(tmp, "wg_eval.pkl"))
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        entry16 = train_entry_fp16(hp, device, tmp)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        pipeline = train_pipeline(hp, device, tmp)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        dp = train_dp(hp, device, tmp)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        tp = train_tp(model, hp, device, tmp)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        results, launches = serve_phase(model, hp, device, tmp)
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        tools, tool_launches = tools_phase(model, hp, tmp, card)
-    probes = probe_entry()
+    probes = timed("probe_entry", probe_entry)
     launches.update({k: entry["launches"][k] for k in ("K3", "K4")}, **probes["launches"])
-    for key, n in tool_launches.items():
+    for key, n in list(tool_launches.items()) + list(study_launches.items()):
         launches[key] += n
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernel_checks": rows + k56_rows + k34_rows,
                    "requests": results, "train": [steady, fp16, entry, entry16, pipeline, dp, tp],
-                   "tools": tools, "probes": probes,
-                   "launches": launches}, f, indent=1)
+                   "tools": tools, "studies": studies, "probes": probes,
+                   "launches": launches, "phase_s": PHASE_S}, f, indent=1)
 
     t = k34["row"]
     report["K3"] = {"max_abs_err": k34["K3"], "ms": t["K3_ms"], "plain_ms": t["K3_plain_ms"],
@@ -2413,7 +2624,9 @@ def main() -> int:
             "launches": launches[key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
-    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all | {card}", flush=True)
+    total = time.perf_counter() - t0
+    print(json.dumps({"phase_s": {"name": "total", "s": total}}), flush=True)
+    print(f"chip_smoke: {total:.1f} s in all | {card}", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,7 +20,7 @@ def available() -> bool:
     return True
 
 
-def _plt():
+def pyplot():
     import matplotlib
 
     matplotlib.use("Agg")
@@ -32,13 +32,13 @@ def _plt():
 def _fig_to_numpy(fig) -> np.ndarray:
     fig.canvas.draw()
     data = np.asarray(fig.canvas.buffer_rgba())[..., :3]
-    _plt().close(fig)
+    pyplot().close(fig)
     return data
 
 
 def plot_alignment_to_numpy(alignment: np.ndarray, info: str | None = None):
     """alignment: (encoder_steps, decoder_steps)."""
-    plt = _plt()
+    plt = pyplot()
     fig, ax = plt.subplots(figsize=(6, 4))
     im = ax.imshow(alignment, aspect="auto", origin="lower", interpolation="none")
     fig.colorbar(im, ax=ax)
@@ -49,7 +49,7 @@ def plot_alignment_to_numpy(alignment: np.ndarray, info: str | None = None):
 
 
 def plot_spectrogram_to_numpy(spectrogram: np.ndarray):
-    plt = _plt()
+    plt = pyplot()
     fig, ax = plt.subplots(figsize=(12, 3))
     im = ax.imshow(spectrogram, aspect="auto", origin="lower", interpolation="none")
     fig.colorbar(im, ax=ax)
@@ -65,7 +65,7 @@ def plot_gate_outputs_to_numpy(gate_targets, gate_outputs):
     if len(gate_outputs) != len(gate_targets):
         reps = -(-len(gate_targets) // len(gate_outputs))
         gate_outputs = np.repeat(np.asarray(gate_outputs), reps)[: len(gate_targets)]
-    plt = _plt()
+    plt = pyplot()
     fig, ax = plt.subplots(figsize=(12, 3))
     ax.scatter(range(len(gate_targets)), gate_targets, alpha=0.5, color="green", marker="+",
                s=1, label="target")
@@ -80,7 +80,7 @@ def plot_gate_outputs_to_numpy(gate_targets, gate_outputs):
 def plot_scatter(mus: np.ndarray, labels: np.ndarray, names=("neu", "sad", "ang", "hap")):
     """2-D scatter of the first two latent dims colored by emotion label."""
     colors = "r", "b", "g", "y", "c", "m"
-    plt = _plt()
+    plt = pyplot()
     fig, ax = plt.subplots(figsize=(6, 6))
     for i in range(min(len(names), int(labels.max(initial=0)) + 1)):
         sel = labels == i
