@@ -5,6 +5,7 @@
     python3 chip_smoke.py --k34      # build, then only the K3/K4 checks
     python3 chip_smoke.py --k56      # build, then only K5/K6 and the probes' entry
     python3 chip_smoke.py --k12      # build K1/K2 alone: their checks, then their timings
+                                     # (K1's L2 facts first)
     python3 chip_smoke.py --dp       # build, then only the data-parallel checks (train_dp)
     python3 chip_smoke.py --fp16     # build K1-K4, then only the float16 checks and fp16_run
     python3 chip_smoke.py --tp       # build K2-K4, then only the model-axis checks (train_tp)
@@ -17,9 +18,12 @@
 2. Kernels: builds every CUDA kernel of the port from ``csrc/`` (one nvcc
    per source, started together) and holds each against its plain PyTorch
    twin on the card at full width, each output against its own tolerance:
-   K1 (decode loop) in bf16, float16 and f32, B=1 and B=4, at S=64 with 200 forced
-   steps, prenet dropout off and on, and at the serve phase's S=32 with 600
-   forced steps; K2 (STFT -> mel -> log) on a 3 s and a 2 s synthetic wav;
+   K1 (decode loop) in bf16, float16 and f32, B=1 and B=4, at S=64 with 200
+   forced steps, prenet dropout off and on, and at the serve phase's S=32 with
+   600 forced steps; its graph reused by repeated calls at one shape (one
+   instantiation); its tail kernel alone against its plain version on the
+   same inputs (ops/decoder_loop.py tail_step), timed by the profiler
+   inside a decode; K2 (STFT -> mel -> log) on a 3 s and a 2 s synthetic wav;
    K3 and K4 (teacher-forced recurrence forward and backward) at B=64,
    S=128, T=512 and at B=6, S=77, T=45 with masked rows, in bf16, float16 and f32,
    recurrent dropout off and on: every output, and every gradient of the
@@ -313,6 +317,147 @@ def k1_check(dl, kw, memory, pmem, mask, dtype_name, steps, dropout_on, r):
 
 
 K1_DTYPES = ("bfloat16", "float16", "float32")
+K1_REUSE = (2, 48, 40, 5)  # B, S, steps, calls: a shape no other check uses
+
+
+def k1_inputs(dec, B, S, device, seed):
+    """Memory (B, S, E) from the seed, its processed memory, no mask."""
+    import numpy as np
+    import torch
+    from tacotron2_vae_torch.ops.layers import linear
+
+    rng = np.random.RandomState(seed)
+    memory = torch.from_numpy(
+        (rng.randn(B, S, dec.hp.encoder_embedding_dim) * 0.3).astype(np.float32)).to(device)
+    return memory, linear(memory, dec.attention_layer.memory_layer.linear_layer.weight)
+
+
+def k1_graph_reuse(dec, device):
+    """Repeated K1 calls at one new shape, each on new memory: graphs
+    instantiated (must be 1, by the first call), the persisting-L2 limit
+    before and after (must match), and the first call's outputs unchanged
+    by the later calls (no buffer shared across calls)."""
+    import torch
+    from tacotron2_vae_torch.ops import decoder_loop as dl
+
+    B, S, steps, calls = K1_REUSE
+    kw = dl.pack_weights(dec, torch.float32)  # the dtype whose decode sets L2 aside
+    args = dict(max_steps=steps, gate_threshold=1.0, seed=7, dropout_on=True)
+    before = dl.info()
+    outs = [dl.decode_loop(kw, *k1_inputs(dec, B, S, device, i), None, **args)
+            for i in range(calls)]
+    first = dl.decode_loop(kw, *k1_inputs(dec, B, S, device, 0), None, **args)
+    after = dl.info()
+    row = {"kernel": "K1", "check": "graph_reuse", "B": B, "S": S, "steps": steps,
+           "calls": calls + 1, "graphs_instantiated": after["graphs_instantiated"]
+           - before["graphs_instantiated"], "persisting_l2_limit": [
+               before["persisting_l2_limit"], after["persisting_l2_limit"]],
+           "windowed_lstm_nodes": after["windowed_lstm_nodes"],
+           "first_call_kept": all(torch.equal(a, b) for a, b in zip(outs[0], first))}
+    row["fails"] = [k for k, ok in (
+        ("graphs_instantiated", row["graphs_instantiated"] == 1),
+        ("persisting_l2_limit", before["persisting_l2_limit"] == after["persisting_l2_limit"]),
+        ("windowed_lstm_nodes",
+         after["windowed_lstm_nodes"] == (2 * dl.UNROLL if dl.l2_window(kw) else 0)),
+        ("first_call_kept", row["first_call_kept"])) if not ok]
+    print(json.dumps(row), flush=True)
+    return row
+
+
+# tail_kernel alone against its plain version (ops/decoder_loop.py
+# tail_step and tail_step_plain): (dtype, B, S) at the main check's shape and
+# the serve phase's, each at a step with a finished row that continues, at
+# the step cap (no prenet) and past the end.  The frame (mel, gate) is one
+# float32 dot product of the same rounded inputs in another order, held to
+# K1's early-step limit; the alignments, h_dec and the flags are copies,
+# held exactly; the next prenet rounds the frame and its hidden layer, where
+# a sum-order flip moves an element by one ulp, held to K1's whole-run mel
+# limit.
+TAIL_CASES = (("bfloat16", 4, 64), ("float32", 1, 32))
+TAIL_STEPS = 200
+
+
+def tail_inputs(kw, B, S, device, seed):
+    """Random float32 state around one tail launch: xa, xd (their other
+    columns must stay), xp = [h_dec in (-1, 1), ctx], wprev a softmax over
+    S, and output buffers already holding values (rows not written keep
+    them)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    Ha, Hd = kw["att_w"].shape[0] // 4, kw["dec_w"].shape[0] // 4
+    P, n_out = kw["w1"].shape
+    E = kw["pg_w"].shape[1] - Hd
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    return {"xa": r(B, P + E + Ha), "xd": r(B, Ha + E + Hd),
+            "xp": torch.cat([torch.tanh(r(B, Hd)), 0.3 * r(B, E)], 1),
+            "wprev": torch.softmax(r(B, S), 1), "mel": r(TAIL_STEPS, B, n_out),
+            "gate": r(TAIL_STEPS, B), "align": r(TAIL_STEPS, B, S)}
+
+
+def tail_call(fn, kw, bufs, flags):
+    fn(kw, bufs["xa"], bufs["xd"], bufs["xp"], bufs["wprev"], flags, bufs["mel"],
+       bufs["gate"], bufs["align"], max_steps=TAIL_STEPS, gate_threshold=0.5, seed=7,
+       dropout_on=True)
+
+
+def tail_check(dec, device):
+    """tail_kernel against tail_step_plain on the same inputs at each
+    TAIL_CASES case and step; then, at the main check's shape (bf16, B=4,
+    S=64), its device time a launch (the profiler over one stream-launched
+    decode, a launch a step), its plain version's time (CUDA events) and its
+    bound: the bytes of its weights, inputs and outputs, or its products'
+    operations."""
+    import torch
+    from tacotron2_vae_torch import profile_decode as pd
+    from tacotron2_vae_torch.ops import decoder_loop as dl
+
+    checks, fails, err = [], [], 0.0
+    for dtype_name, B, S in TAIL_CASES:
+        kw = dl.pack_weights(dec, getattr(torch, dtype_name))
+        for t, done in ((5, 0), (TAIL_STEPS - 1, 0), (7, 1)):
+            bufs = tail_inputs(kw, B, S, device, t)
+            flags = torch.zeros(dl.FLAGS, dtype=torch.int32, device=device)
+            flags[0], flags[1] = done, t
+            flags[3:min(4, 2 + B)] = 1  # row 1 has finished
+            got, want = ({k: v.clone() for k, v in bufs.items()} for _ in range(2))
+            got_flags, want_flags = flags.clone(), flags.clone()
+            tail_call(dl.tail_step, kw, got, got_flags)
+            tail_call(dl.tail_step_plain, kw, want, want_flags)
+            errs = {k: (got[k] - want[k]).abs().max().item() for k in got}
+            tol = {k: 0.0 for k in ("align", "xd", "xp", "wprev")}
+            tol.update(mel=K1_EARLY_TOL[dtype_name], gate=K1_EARLY_TOL[dtype_name],
+                       xa=K1_TOL[dtype_name]["mel"])
+            bad = [k for k in errs if errs[k] > tol[k]]
+            bad += [] if torch.equal(got_flags, want_flags) else ["flags"]
+            checks.append({"dtype": dtype_name, "B": B, "S": S, "t": t, "done": done,
+                           "errs": errs, "fails": bad})
+            fails += bad
+            err = max(err, *errs.values())
+
+    prof = pd.profile(dec, 4, 64, TAIL_STEPS, torch.bfloat16, device)
+    kw = dl.pack_weights(dec, torch.bfloat16)
+    bufs = tail_inputs(kw, 4, 64, device, 0)
+    flags = torch.zeros(dl.FLAGS, dtype=torch.int32, device=device)
+    flags[1] = 5
+    plain_ms = cuda_ms(lambda: tail_call(dl.tail_step_plain, kw, bufs, flags), 20)
+    Hd = kw["dec_w"].shape[0] // 4
+    (N, Kp), (P, n_in) = kw["pg_w"].shape, kw["w1"].shape
+    B, S = 4, 64
+    weight_bytes = sum(kw[k].numel() * kw[k].element_size() for k in ("pg_w", "pg_b", "w1", "w2"))
+    io_bytes = 4 * B * (Kp + S + N + S + Hd + P)
+    bound_ms, bound_by = bound(weight_bytes + io_bytes, 2.0 * B * (N * Kp + P * n_in + P * P),
+                               "bfloat16")
+    by_kernel = us_by_kernel(prof)
+    row = {"kernel": "tail_kernel", "dtype": "bfloat16", "B": B, "S": S, "steps": TAIL_STEPS,
+           "ms": by_kernel["tail_kernel"] / 1e3, "plain_ms": plain_ms, "max_abs_err": err,
+           "bound_ms": bound_ms, "bound_by": bound_by, "us_per_step_by_kernel": by_kernel,
+           "checks": checks, "fails": fails}
+    print(json.dumps(row), flush=True)
+    return row
 
 
 def kernels_phase(model, hp, device, k1_dtypes=K1_DTYPES, k2=True):
@@ -356,6 +501,13 @@ def kernels_phase(model, hp, device, k1_dtypes=K1_DTYPES, k2=True):
                     failed += [row] if row["fails"] else []
                     k1_err = max(k1_err, row["max_abs_err"])
     report["K1"] = dict(k1_main, max_abs_err=k1_err)
+    if "bfloat16" in k1_dtypes:
+        graphs = k1_graph_reuse(dec, device)
+        rows.append(graphs)
+        failed += [graphs] if graphs["fails"] else []
+        report["tail"] = tail_check(dec, device)
+        rows.append(report["tail"])
+        failed += [report["tail"]] if report["tail"]["fails"] else []
     if not k2:
         if failed:
             raise AssertionError(f"{len(failed)} kernel check(s) disagree with the twin: "
@@ -850,6 +1002,15 @@ def short_name(key):
     return re.split(r"[(<]", name)[0].split("::")[-1] or key[:40]
 
 
+def us_by_kernel(prof):
+    """Device µs a step by kernel name from ``profile_decode.profile``."""
+    out = {}
+    for key, k in prof["kernels"].items():
+        name = short_name(key)
+        out[name] = out.get(name, 0.0) + k["total_us"] / prof["steps"]
+    return out
+
+
 def k34_phase(model, device, dtypes=K34_DTYPES):
     """K3 and K4 against their twins at every case, dtype of ``dtypes`` and
     dropout setting; the full-width case with dropout is timed in bf16 (with
@@ -883,14 +1044,12 @@ def k34_phase(model, device, dtypes=K34_DTYPES):
 # the serve phase's text bucket and step cap
 K12_DECODE = ((64, 200), (32, 600))
 K12_PROFILED_CALLS = 20  # eager K2 calls (and library calls) under the profiler
-
-
 def k12_phase(model, hp, device):
     """K1 and K2 alone: their checks at full width and K2 in turns with its
     library call (``kernels_phase``); the profiler's device µs per call of
     K2 and of its library call at each K2_TURN_SECONDS; K1's device µs per
-    step of each of its kernels (``profile_decode.profile``, graph replays
-    under the profiler) at B=1 and B=4, bf16 and f32, at each K12_DECODE
+    step of each of its kernels (``profile_decode.profile``: each step's
+    kernels launched on the stream under the profiler) at B=1 and B=4, bf16 and f32, at each K12_DECODE
     shape; and the host-clock split of one ``infer`` at the serve shape
     (``profile_decode.profile_infer``).  Writes every row to
     ``chiprun_out/chip_smoke_k12.json``."""
@@ -899,6 +1058,9 @@ def k12_phase(model, hp, device):
     from tacotron2_vae_torch import profile_decode as pd
     from tacotron2_vae_torch.ops import stft_mel as sm
 
+    from tacotron2_vae_torch.ops import decoder_loop as dl
+
+    print(json.dumps({"K1_l2": dl.info()}), flush=True)  # before any decode
     report, rows = kernels_phase(model, hp, device)
     tab = k2_tables(hp, device)
     key = (hp.filter_length, hp.hop_length, hp.win_length, hp.n_mel_channels,
@@ -916,13 +1078,10 @@ def k12_phase(model, hp, device):
         for dtype in (torch.bfloat16, torch.float32):
             for B in (1, 4):
                 prof = pd.profile(model.decoder, B, S, steps, dtype, device)
-                by_kernel = {}
-                for name, k in prof["kernels"].items():
-                    name = short_name(name)
-                    by_kernel[name] = by_kernel.get(name, 0.0) + k["total_us"] / steps
                 row = {"kernel": "K1", **{k: prof[k] for k in (
-                    "B", "S", "steps", "dtype", "us_per_step", "kernel_us_per_step",
-                    "device_busy_share")}, "us_per_step_by_kernel": by_kernel}
+                    "B", "S", "steps", "dtype", "us_per_step", "stream_ms",
+                    "kernel_us_per_step", "device_busy_share", "graphs_instantiated")},
+                       "us_per_step_by_kernel": us_by_kernel(prof)}
                 print(json.dumps(row), flush=True)
                 rows.append(row)
     for B in (1, 4):
@@ -2100,7 +2259,7 @@ def serve_phase(model, hp, device, tmp):
 
     wg = random_waveglow()
     ckpt, wg_path, manifest, ref = serve_files(model, wg, tmp)
-    dl.decode_loop.launches = 0
+    dl.decode_loop.launches = dl.decode_loop.tail_launches = 0
     sm.mel_spectrogram_fused.launches = 0
     synth = Synthesizer(hp, device=device)
     synth.load(ckpt, centroid_filelist=manifest)
@@ -2118,8 +2277,9 @@ def serve_phase(model, hp, device, tmp):
                                   "waveglow_" + ("bfloat16" if dtype else "float32"))
     synth.vocoder_dtype = None
     http = http_phase(synth, tmp)
-    launches = {"K1": dl.decode_loop.launches, "K2": sm.mel_spectrogram_fused.launches}
-    if launches["K1"] < 4 or launches["K2"] < 1:
+    launches = {"K1": dl.decode_loop.launches, "K2": sm.mel_spectrogram_fused.launches,
+                "tail_kernel": dl.decode_loop.tail_launches}
+    if launches["K1"] < 4 or launches["K2"] < 1 or launches["tail_kernel"] < 1:
         raise AssertionError(f"serving did not run through the kernels: {launches}")
     del synth
     torch.cuda.empty_cache()
@@ -2280,10 +2440,11 @@ def tools_phase(model, hp, tmp, card):
     smoke, f1 = smoke_runs(card)
     launches = {"K3": tf.teacher_fwd.launches, "K4": tf.teacher_bwd.launches}
     torch.cuda.empty_cache()
-    dl.decode_loop.launches = 0
+    dl.decode_loop.launches = dl.decode_loop.tail_launches = 0
     sm.mel_spectrogram_fused.launches = 0
     demo, f2 = inference_runs(model, random_waveglow(), hp, tmp, card)
     launches["K1"] = dl.decode_loop.launches
+    launches["tail_kernel"] = dl.decode_loop.tail_launches
     k2_demo = sm.mel_spectrogram_fused.launches
     torch.cuda.empty_cache()
     sm.mel_spectrogram_fused.launches = 0
@@ -2356,10 +2517,12 @@ def studies_phase(tmp, card, waveglow):
     def run(name, fn, kernels, depth):
         for c in counters.values():
             c.launches = 0
+        dl.decode_loop.tail_launches = 0
         t0 = time.perf_counter()
         out = fn()
         row = {"phase": f"study_{name}", "wall_s": time.perf_counter() - t0, "card": card,
                "depth": depth, "launches": {k: counters[k].launches for k in counters}}
+        row["launches"]["tail_kernel"] = dl.decode_loop.tail_launches
         missing = [k for k in kernels if row["launches"][k] < 1]
         if missing:
             failures.append(f"{name} did not launch {missing}: {row['launches']}")
@@ -2442,7 +2605,7 @@ def studies_phase(tmp, card, waveglow):
     print(json.dumps(row), flush=True)
     rows.append(row)
 
-    launches = {k: sum(r["launches"][k] for r in rows) for k in counters}
+    launches = {k: sum(r["launches"][k] for r in rows) for k in (*counters, "tail_kernel")}
     phase = {"phase": "studies", "wall_s": time.perf_counter() - t_phase, "card": card,
              "tools_wall_s": {r["phase"][6:]: r["wall_s"] for r in rows},
              "launches": launches}
@@ -2605,6 +2768,9 @@ def main() -> int:
         "K1": ("decode_loop", "tacotron2_vae_torch/csrc/decoder_loop.cu",
                "tacotron2_vae_tpu/ops/pallas/decoder_loop.py:112 (_kernel), "
                ":408 (_kernel_batched)"),
+        "tail": ("tail_kernel", "tacotron2_vae_torch/csrc/decoder_loop.cu",
+                 "tacotron2_vae_tpu/ops/pallas/decoder_loop.py:112 (_kernel), "
+                 ":408 (_kernel_batched): the step's projection, outputs and next prenet"),
         "K2": ("stft_mel", "tacotron2_vae_torch/csrc/stft_mel.cu",
                "tacotron2_vae_tpu/ops/pallas/stft_mel.py:31 (_kernel)"),
         "K3": ("teacher_fwd", "tacotron2_vae_torch/csrc/teacher_fwd.cu",
@@ -2621,7 +2787,8 @@ def main() -> int:
         r = report[key]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[key], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launches": launches[name if key == "tail" else key],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
     total = time.perf_counter() - t0

@@ -4,39 +4,73 @@
 // via decode_loop) and ::_kernel_batched (1<B<=8, via decode_loop_batched).
 // One set of kernels serves every B from 1 to 8 (B is a template argument).
 //
-// What bounds it on an H100: every decoder step streams the two fused LSTM
+// What bounds it on an H100: every decoder step reads the two fused LSTM
 // weight matrices, (P+E+Ha) x 4Ha and (Ha+E+Hd) x 4Hd, plus the small
-// query / location / projection weights: ~36.3 MB in bf16 (~72.6 MB in f32)
-// per step at the full-width defaults, against 3.35 TB/s of HBM -> about
-// 10.8 us (bf16) / 21.7 us (f32) per step.  The activations are a few KB.
-// The TPU kernel pinned all weights in VMEM for the whole loop; one SM has
-// 227 KB of shared memory, so that does not carry over.  In bf16 the two
-// LSTM weights (35.7 MB) fit in the 50 MB L2, so steps after the first can
-// run faster than the HBM bound.
+// query / location / projection / prenet weights: ~36.3 MB in bf16 (~72.6 MB
+// in f32) a step at the full-width defaults, against 3.35 TB/s of HBM ->
+// about 10.8 us (bf16) / 21.7 us (f32) a step if every byte came from HBM.
+// The activations are a few KB.  The TPU kernel pinned all weights in VMEM
+// for the whole loop; one SM has 227 KB of shared memory, so that does not
+// carry over.  The 50 MB L2 holds them instead: the card lets 32.8 MB be
+// set aside for persisting lines (cudaDevAttrMaxPersistingL2CacheSize), a
+// hitRatio of 0.92 of the bf16 LSTM weights (35.7 MB) and 0.46 of the f32
+// ones (71.4 MB).  Measured (PERF.md): in f32 the window saves ~5 us a
+// step; in bf16 the weights stay in L2 without it, and with it a decode
+// was slower, so the wrapper asks for it only where both LSTMs' weights
+// exceed the card's L2 (ops/decoder_loop.py l2_window).  Every kernel is
+// bound by latency, not by the card's rates: its time is its chain of
+// dependent loads and barriers, which each issues a chunk at a time.
 //
-// Design (per-step kernels, not a persistent kernel with a grid sync): six
-// kernels per step, captured for `check_every` steps into one CUDA graph
-// that the host replays on the caller's stream.
-//   pre   prenet (2 x linear+ReLU+dropout 0.5): every block computes layer
-//         1 for every row, then 64 outputs of layer 2
+// Design: four per-step kernels in a CUDA graph that loops on the device.
 //   lstm  attention LSTM: two warps per hidden unit compute its 4 gate rows
-//         for every batch row (GEMV over weights packed [4*j+g][k]), then
-//         the fp32 cell update
+//         for every batch row (GEMV over weights packed [4*j+g][k], the
+//         weight loads of a chunk in flight with x's before the first FMA),
+//         then the fp32 cell update; launched, where asked, with an L2
+//         access-policy window over its weights (persisting hits,
+//         streaming misses)
 //   att   one cluster of kNC CTAs per row (below): query, the 31-tap
 //         location conv over [w_prev, w_cum], loc_dense, tanh(q+loc+pmem).v,
 //         additive mask, softmax over S, context = w.memory, w_cum += w
-//   lstm  decoder LSTM (same kernel)
-//   proj  one warp per output column: fused mel+gate projection
-//   fin   one block: writes the step's outputs for rows not yet finished,
-//         updates finished[B], the step count and the all-done flag
-// Every kernel reads the step index from the device (flags[1]) and returns
-// at once when the all-done flag is set or max_steps is reached; the host
-// reads the flag after every replay of the graph to stop launching.  Per-step
-// kernels were chosen over a persistent kernel because each phase needs a
-// different parallel layout (unit-parallel GEMV vs row-parallel attention)
-// and a grid-wide barrier five times per step would need a cooperative
-// launch; the price is 6 launches per step, which the graph replays with
-// less launch overhead than one stream launch each.
+//   lstm  decoder LSTM (same kernel, its own window over its weights)
+//   tail  one cluster of kTailNC CTAs: the fused mel+gate projection (its
+//         N = n_mel*r + 1 columns split over the CTAs, a warp a column),
+//         the frame exchanged through distributed shared memory, the step's
+//         outputs for rows not yet finished, the finished flags, the step
+//         count, then the prenet of step t+1 on that frame (each layer's
+//         outputs split over the CTAs, layer 1's exchanged the same way);
+//         it ends the graph's loop (cudaGraphSetConditional) once every row
+//         has finished or max_steps steps have run; every launch adds one
+//         to a count on the device (flags[kTailRuns]), which the entry
+//         returns with the step count.
+// Each of the four needs the whole output of the one before, so four
+// launches a step is the least that per-step kernels allow (a persistent
+// kernel would need a grid-wide barrier between them).  The tail is bound
+// by latency, not by its ~0.5 MB of weights (0.15 us of HBM): one round trip
+// for all its loads (weights, flags, [h_dec, ctx]), two cluster exchanges,
+// three short products; kTailNC = 8 measured 3.3-5.0 us a step faster than
+// 4 (tools/decode_turns.py in turns with a copy built with 4; PERF.md).
+//
+// The loop on the device: the graph is one conditional WHILE node whose
+// body is kUnroll = 8 steps' kernels (an iteration of the node measured
+// ~4.5-7 us of its own, and a step past the end returns at once), so a
+// decode is one graph launch, with no host read of the all-finished flag
+// between steps; the host synchronises once, at the end, to read the step
+// count.  The graph is built once per set of sizes and
+// weights (kDecodeGraphs kept, most recent first) and reused by every call:
+// its kernels take fixed pointers into a work arena that the entry owns, and
+// each call's head kernel (a plain launch before the graph, its arguments
+// by value) copies the call's memory, processed memory and mask into the
+// arena, zeroes the recurrent state (the prenet of the zero first frame is
+// zero: the prenet has no bias) and writes the call's output pointers,
+// step cap, seed and threshold there.  So a call with new tensors needs no
+// capture, no update and no instantiation; the outputs are the caller's own
+// tensors, never a buffer a later call overwrites.  Every kernel reads the
+// step from the device (flags[1]) and returns at once once flags[0] is set
+// (every row finished or max_steps reached).  The L2 set-aside is scoped to
+// the decode: set before the head, then, after the final synchronise, the
+// persisting lines reset and the limit restored to what it was.  Decodes are
+// serialised by one mutex, which the arena, the cache and the device-wide
+// limit need.
 //
 // The attention step.  One block per row ran it as a chain on one SM: the
 // whole query product (Wq, 128 x 1024, 256 KB in bf16, read by every row's
@@ -77,6 +111,8 @@
 // before and after the conv, tanh(.) before v, the attention weights before
 // the context product, [h_dec, ctx] before the projection); products
 // accumulate in fp32, and all state (h, c, w_prev, w_cum, ctx) stays fp32.
+// Each dot product is summed in one fixed order by one warp (no partial sums
+// across CTAs, no float atomics), so a run is deterministic.
 // The mask is additive with finfo(float32).min, so a fully masked row is
 // uniform, not NaN.  Prenet dropout draws its bits from a counter hash of
 // (seed, step, layer, row, unit); ops/decoder_loop.py computes the same
@@ -88,18 +124,29 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <mutex>
+#include <vector>
+
 namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kWarps = 8;          // warps per block in the GEMV kernels
+constexpr int kWarps = 8;          // warps per block in the LSTM kernel
 constexpr int kThreads = 256;      // threads per block elsewhere
 constexpr int kNC = 8;             // attention: CTAs per row (one cluster), S split kNC ways
 constexpr int kCtxPre = 4;         // attention: context memory vectors a thread loads early
-constexpr int kPreRows = 64;       // prenet layer-2 outputs per block
 constexpr int kMaxF = 32;          // location filters held in registers
 constexpr int kSplitK = 2;         // warps sharing one LSTM unit's dot products
-constexpr int kPreThreads = 512;   // threads of the prenet kernel
+constexpr int kTailNC = 8;         // tail: CTAs of its cluster
+constexpr int kTailThreads = 512;  // threads of each tail CTA
+constexpr int kProjNK = 8;         // tail: weight vectors a lane loads before its FMAs
+constexpr int kHeadBlocks = 64;    // blocks of the head kernel
+constexpr int kDecodeGraphs = 8;   // executable graphs kept, one per set of sizes and weights
+constexpr int kUnroll = 8;         // steps in the body of the graph's device-side loop
+constexpr int kFlags = 16;         // ints of the flags: done, step, finished[B], ..., tail runs
+constexpr int kTailRuns = kFlags - 1;  // flags slot counting the tail's launches
+constexpr int kNoCap = 0x7fffffff; // the step cap the graph's kernels see (the tail applies max_steps)
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
@@ -118,11 +165,16 @@ template <> __device__ __forceinline__ float rnd<__half>(float v) {
   return __half2float(__float2half_rn(v));
 }
 
+template <typename T> __device__ __forceinline__ float4 rnd4(float4 v) {
+  return make_float4(rnd<T>(v.x), rnd<T>(v.y), rnd<T>(v.z), rnd<T>(v.w));
+}
+
 __device__ __forceinline__ float sigm(float x) { return 1.0f / (1.0f + expf(-x)); }
 
 // The step this launch belongs to, read from the device-side step count
-// (flags[1], advanced by fin_kernel at the end of every step), or -1 once
-// every row has finished or max_steps steps have run.
+// (flags[1], advanced by tail_kernel at the end of every step), or -1 once
+// flags[0] is set (every row finished or max_steps steps run) or t reaches
+// max_steps.
 __device__ __forceinline__ int step_of(const int* flags, int max_steps) {
   const int t = flags[1];
   return flags[0] || t >= max_steps ? -1 : t;
@@ -221,45 +273,91 @@ __device__ __forceinline__ void stage_rows(const float* x, int ldx, int K, float
   __syncthreads();
 }
 
-// acc[r][b] = sum_k w[row0 + r][k] * xs[b][k] for R weight rows and B batch rows,
-// one warp; every lane holds the full sums on return.  Each lane loads its
-// V-wide slice of x once (16-byte shared loads) and reuses it for the R rows.
-// Only columns [kb, ke) are summed (split-K); xs must be 16-byte aligned and
-// K, kb, ke multiples of V.
-template <typename T, int B, int R>
-__device__ __forceinline__ void warp_gemv(const T* __restrict__ w, size_t row0, int K,
-                                          const float* xs, float (&acc)[R][B], int kb = 0,
-                                          int ke = -1) {
+
+// One warp's weight vectors of R rows for one chunk of 32 V NK columns
+// starting at c0 (lane l holds columns c0 + (l + 32 c) V, c < NK, those
+// below ke), loaded with every load in flight at once.  A kernel loads its
+// first chunk before the data it multiplies is ready, so that the two
+// round trips to memory overlap.
+template <typename T, int R, int NK>
+struct Chunk {
+  uint4 raw[NK][R];
+  __device__ __forceinline__ void load(const T* __restrict__ w, size_t row0, int K, int c0,
+                                       int ke) {
+    constexpr int V = Vec<T>::N;
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int c = 0; c < NK; ++c) {
+      const int k0 = c0 + (c * 32 + lane) * V;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (k0 < ke) raw[c][r] = *reinterpret_cast<const uint4*>(w + (row0 + r) * (size_t)K + k0);
+    }
+  }
+};
+
+// acc[r][b] += the chunk's products with xs[b * K + k] (xs 16-byte aligned).
+template <typename T, int B, int R, int NK>
+__device__ __forceinline__ void fma_chunk(const Chunk<T, R, NK>& ch, int c0, int ke, int K,
+                                          const float* xs, float (&acc)[R][B]) {
   constexpr int V = Vec<T>::N;
   const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int c = 0; c < NK; ++c) {
+    const int k0 = c0 + (c * 32 + lane) * V;
+    if (k0 < ke) {
+      float xv[B][V];
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        const float4* p = reinterpret_cast<const float4*>(xs + b * K + k0);
+#pragma unroll
+        for (int q4 = 0; q4 < V / 4; ++q4) {
+          const float4 x4 = p[q4];
+          xv[b][4 * q4] = x4.x;
+          xv[b][4 * q4 + 1] = x4.y;
+          xv[b][4 * q4 + 2] = x4.z;
+          xv[b][4 * q4 + 3] = x4.w;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float wv[V];
+        Vec<T>::unpack(ch.raw[c][r], wv);
+#pragma unroll
+        for (int b = 0; b < B; ++b)
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[r][b] = fmaf(wv[e], xv[b][e], acc[r][b]);
+      }
+    }
+  }
+}
+
+// acc[r][b] = sum over k in [kb, ke) of w[row0 + r][k] * xs[b * K + k], for R
+// weight rows and B batch rows, one warp; every lane holds the full sums on
+// return.  Lane l sums k = kb + (l + 32 i) V in order of i, a chunk of NK
+// vectors of each row at a time (one round trip to memory a chunk); the
+// first chunk is `first`, loaded earlier, when `have_first`.  K, kb, ke
+// multiples of V.  A kernel keeps one call site a product: its code is
+// fetched anew at every launch, and the tail ran faster with less of it
+// (PERF.md).
+template <typename T, int B, int R, int NK>
+__device__ __forceinline__ void gemv_rows(const T* __restrict__ w, size_t row0, int K,
+                                          const float* xs, float (&acc)[R][B], int kb, int ke,
+                                          const Chunk<T, R, NK>& first, bool have_first) {
+  constexpr int step = 32 * Vec<T>::N * NK;
 #pragma unroll
   for (int r = 0; r < R; ++r)
 #pragma unroll
     for (int b = 0; b < B; ++b) acc[r][b] = 0.0f;
-  if (ke < 0) ke = K;
-  for (int k0 = kb + lane * V; k0 < ke; k0 += 32 * V) {
-    float xv[B][V];
-#pragma unroll
-    for (int b = 0; b < B; ++b) {
-      const float4* p = reinterpret_cast<const float4*>(xs + b * K + k0);
-#pragma unroll
-      for (int q4 = 0; q4 < V / 4; ++q4) {
-        const float4 x4 = p[q4];
-        xv[b][4 * q4] = x4.x;
-        xv[b][4 * q4 + 1] = x4.y;
-        xv[b][4 * q4 + 2] = x4.z;
-        xv[b][4 * q4 + 3] = x4.w;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float wv[V];
-      Vec<T>::load(w + (row0 + r) * (size_t)K + k0, wv);
-#pragma unroll
-      for (int b = 0; b < B; ++b)
-#pragma unroll
-        for (int e = 0; e < V; ++e) acc[r][b] = fmaf(wv[e], xv[b][e], acc[r][b]);
-    }
+  int c0 = kb;
+  if (have_first) {
+    fma_chunk<T, B, R, NK>(first, c0, ke, K, xs, acc);
+    c0 += step;
+  }
+  for (; c0 < ke; c0 += step) {
+    Chunk<T, R, NK> ch;
+    ch.load(w, row0, K, c0, ke);
+    fma_chunk<T, B, R, NK>(ch, c0, ke, K, xs, acc);
   }
 #pragma unroll
   for (int r = 0; r < R; ++r)
@@ -267,86 +365,50 @@ __device__ __forceinline__ void warp_gemv(const T* __restrict__ w, size_t row0, 
     for (int b = 0; b < B; ++b) acc[r][b] = warp_sum(acc[r][b]);
 }
 
-// ---------------------------------------------------------------- kernels
-
-// Prenet for all B rows: every block computes layer 1 (small) for every row,
-// then its kPreRows outputs of layer 2.  Weights in (out, in) layout, read
-// by warps as in warp_gemv; each call covers R rows (16 at B=1 down to 2
-// at B>4 for layer 1, at most 8 for layer 2) so a warp needs few load
-// round trips.
-template <typename T, int B>
-__global__ void __launch_bounds__(kPreThreads) pre_kernel(const T* __restrict__ w1, const T* __restrict__ w2,
-                           const float* __restrict__ prev, int ldprev, int n_in, int P,
-                           float* __restrict__ xa, int lda, const int* __restrict__ flags,
-                           int max_steps, uint32_t seed, int dropout_on) {
-  constexpr int R1 = B <= 2 ? 16 : B <= 4 ? 8 : 4;  // R1 * B <= 32, divides P
-  constexpr int R2 = R1 < 4 ? R1 : 4;
-  const int t = step_of(flags, max_steps);
-  if (t < 0) return;
-  extern __shared__ float sm[];
-  float* xin = sm;           // B * n_in
-  float* h1 = sm + B * n_in; // B * P
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  for (int i = threadIdx.x; i < B * n_in; i += blockDim.x) {
-    const int b = i / n_in;
-    xin[i] = t == 0 ? 0.0f : rnd<T>(prev[(size_t)b * ldprev + (i - b * n_in)]);
-  }
-  __syncthreads();
-  for (int n0 = warp * R1; n0 < P; n0 += nw * R1) {
-    float acc[R1][B];
-    warp_gemv<T, B, R1>(w1, (size_t)n0, n_in, xin, acc);
-    if (lane == 0) {
+// acc[i / B][i % B] for a lane's own i (a select per element, so that each
+// lane of a warp takes a different element in parallel after warp_sum).
+template <int R, int B>
+__device__ __forceinline__ float pick(const float (&acc)[R][B], int i) {
+  float v = 0.0f;
 #pragma unroll
-      for (int r = 0; r < R1; ++r)
+  for (int r = 0; r < R; ++r)
 #pragma unroll
-        for (int b = 0; b < B; ++b) {
-          float v = fmaxf(acc[r][b], 0.0f);
-          if (dropout_on) v = keep_bit(seed, t, 0, b, n0 + r) ? v * 2.0f : 0.0f;
-          h1[b * P + n0 + r] = rnd<T>(v);
-        }
-    }
-  }
-  __syncthreads();
-  const int end = min(P, (int)(blockIdx.x + 1) * kPreRows);
-  for (int n0 = blockIdx.x * kPreRows + warp * R2; n0 < end; n0 += nw * R2) {
-    float acc[R2][B];
-    warp_gemv<T, B, R2>(w2, (size_t)n0, P, h1, acc);
-    if (lane == 0) {
-#pragma unroll
-      for (int r = 0; r < R2; ++r)
-#pragma unroll
-        for (int b = 0; b < B; ++b) {
-          float v = fmaxf(acc[r][b], 0.0f);
-          if (dropout_on) v = keep_bit(seed, t, 1, b, n0 + r) ? v * 2.0f : 0.0f;
-          xa[(size_t)b * lda + n0 + r] = v;
-        }
-    }
-  }
+    for (int b = 0; b < B; ++b) v = r * B + b == i ? acc[r][b] : v;
+  return v;
 }
+
+// ---------------------------------------------------------------- kernels
 
 // One LSTM step: w is (4H, K) with row 4*j+g holding gate g of unit j
 // (gate order i, f, g, o); bias is (4H) in gate-major order g*H+j.  Each
 // unit's dot products are split over kSplitK warps of the block (halving
-// each warp's chain of weight-load round trips); the partial sums meet in
-// shared memory in a fixed order.
+// each warp's chain of weight-load round trips); each warp loads the first
+// chunk of its four rows (up to 4 vectors a row and lane, as registers
+// allow) while the step is read and x staged, so the weights, the step and
+// the data arrive in one round trip.  The partial sums meet in shared
+// memory in a fixed order.
 template <typename T, int B>
 __global__ void lstm_kernel(const T* __restrict__ w, const float* __restrict__ bias,
                             const float* __restrict__ x, int ldx, int K, int H,
                             float* __restrict__ c, float* __restrict__ hout, int ldh,
                             const int* __restrict__ flags, int max_steps) {
-  if (step_of(flags, max_steps) < 0) return;
-  extern __shared__ float xs[];  // B * K
-  __shared__ float part[kWarps][4][B];
-  stage_rows<T, B>(x, ldx, K, xs);
   constexpr int V = Vec<T>::N;
+  constexpr int NK = B <= 2 ? 4 : B <= 4 ? 2 : 1;  // loads in flight, as registers allow
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int unit = warp / kSplitK, ks = warp % kSplitK;
   const int j = blockIdx.x * (kWarps / kSplitK) + unit;
   const int kc = (K / kSplitK + V - 1) / V * V;
   const int kb = min(K, ks * kc), ke = min(K, kb + kc);
+  const int t = step_of(flags, max_steps);
+  Chunk<T, 4, NK> first;
+  if (j < H) first.load(w, (size_t)4 * j, K, kb, ke);
+  extern __shared__ float xs[];  // B * K
+  __shared__ float part[kWarps][4][B];
+  stage_rows<T, B>(x, ldx, K, xs);
+  if (t < 0) return;  // past the end (the whole block alike)
   if (j < H) {
     float acc[4][B];
-    warp_gemv<T, B, 4>(w, (size_t)4 * j, K, xs, acc, kb, ke);
+    gemv_rows<T, B, 4, NK>(w, (size_t)4 * j, K, xs, acc, kb, ke, first, true);
     if (lane == 0)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
@@ -366,25 +428,6 @@ __global__ void lstm_kernel(const T* __restrict__ w, const float* __restrict__ b
     c[(size_t)b * H + j] = cn;
     hout[(size_t)b * ldh + j] = sigm(g[3]) * tanhf(cn);
   }
-}
-
-// Fused mel+gate projection: out[b][n] = w[n] . x[b] + bias[n].
-template <typename T, int B>
-__global__ void proj_kernel(const T* __restrict__ w, const float* __restrict__ bias,
-                            const float* __restrict__ x, int ldx, int K, int N,
-                            float* __restrict__ out, const int* __restrict__ flags,
-                            int max_steps) {
-  if (step_of(flags, max_steps) < 0) return;
-  extern __shared__ float xs[];
-  stage_rows<T, B>(x, ldx, K, xs);
-  const int n = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (n >= N) return;
-  float acc[1][B];
-  warp_gemv<T, B, 1>(w, (size_t)n, K, xs, acc);
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int b = 0; b < B; ++b)
-    if (lane == b) out[(size_t)b * N + n] = acc[0][b] + bias[n];
 }
 
 struct AttDims {
@@ -425,7 +468,7 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // acc[r] = w[row0 + r] . rnd<T>(x) for R rows, one warp, x in shared memory
-// as float; each lane sums its k in the order warp_gemv does, but issues the
+// as float; each lane sums its k in the order gemv_rows does, and issues the
 // loads of NK weight vectors per row before its first FMA, so K <= 32 V NK
 // costs one round trip to memory, not K / 32 V of them.
 template <typename T, int R, int NK>
@@ -764,58 +807,346 @@ att_kernel(AttDims d, const T* __restrict__ wq, const T* __restrict__ locw,
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// Step epilogue, one block: outputs of active rows, finished flags, step count.
-__global__ void fin_kernel(int B, int S, int n_out, int N, int Ha, int E, int Hd,
-                           const float* __restrict__ out_t, const float* __restrict__ wprev,
-                           const float* __restrict__ xp, int ldp, float* __restrict__ xd,
-                           int ldd, int* __restrict__ flags, float* __restrict__ mel_out,
-                           float* __restrict__ gate_out, float* __restrict__ align_out,
-                           int max_steps, float thr) {
-  const int t = step_of(flags, max_steps);
-  if (t < 0) return;
-  __shared__ int active[8];
-  int* finished = flags + 2;
-  if (threadIdx.x < B) active[threadIdx.x] = !finished[threadIdx.x];
-  __syncthreads();
-  for (int i = threadIdx.x; i < B * n_out; i += blockDim.x) {
-    const int b = i / n_out, k = i - b * n_out;
-    if (active[b]) mel_out[((size_t)t * B + b) * n_out + k] = out_t[(size_t)b * N + k];
+// ------------------------------------------------------- the step's tail
+
+// A call's values that the graph's kernels cannot take as arguments (the
+// graph is reused across calls): written by head_kernel, read by tail_kernel.
+struct Params {
+  float* mel_out;
+  float* gate_out;
+  float* align_out;
+  int max_steps, dropout_on;
+  uint32_t seed;
+  float thr;
+};
+
+struct TailDims {
+  int S, E, Ha, Hd, P, n_out;
+  int lda, ldd, ldp;
+};
+
+// The tail's split over a cluster of nc CTAs: each takes Nc of the N
+// projection columns (the last ones fewer or none) and Pc of the prenet's P
+// outputs of each layer (P % 16 == 0 and nc <= 8, so Pc is even).  Its
+// shared memory, in floats, in the kernel's order (every region a multiple
+// of 4 floats): [h_dec, ctx] rounded (B Kp), its own columns (B up4(Nc)),
+// the whole frame (up4(B N)), the frame rounded for prenet layer 1
+// (up4(B n_out)), its own layer-1 outputs (B up4(Pc)), all of them (B P).
+struct TailGeo {
+  int N, Nc, Pc;
+  __host__ __device__ TailGeo(const TailDims& d, int nc) {
+    N = d.n_out + 1;
+    Nc = (N + nc - 1) / nc;
+    Pc = (d.P + nc - 1) / nc;
   }
-  for (int i = threadIdx.x; i < B * S; i += blockDim.x) {
-    const int b = i / S;
-    if (active[b]) align_out[(size_t)t * B * S + i] = wprev[i];
+  __host__ __device__ static int floats(const TailDims& d, int nc, int B) {
+    const TailGeo g(d, nc);
+    return B * (d.Hd + d.E) + B * up4(g.Nc) + up4(B * g.N) + up4(B * d.n_out) +
+           B * up4(g.Pc) + B * d.P;
   }
-  if (threadIdx.x < B && active[threadIdx.x])
-    gate_out[(size_t)t * B + threadIdx.x] = out_t[(size_t)threadIdx.x * N + n_out];
-  for (int i = threadIdx.x; i < B * Hd; i += blockDim.x) {
-    const int b = i / Hd, k = i - b * Hd;
-    xd[(size_t)b * ldd + Ha + E + k] = xp[(size_t)b * ldp + k];
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int all = 1;
-    for (int b = 0; b < B; ++b) {
-      const int f = finished[b] | (sigm(out_t[(size_t)b * N + n_out]) > thr);
-      finished[b] = f;
-      all &= f;
-    }
-    flags[1] = t + 1;
-    flags[0] = all;
-  }
+};
+
+// ReLU, then prenet dropout 0.5 with the bits of (seed, step, layer, row b,
+// unit n), scaled by 2 where kept.
+__device__ __forceinline__ float relu_drop(float v, const Params& p, int step, int layer, int b,
+                                           int n) {
+  v = fmaxf(v, 0.0f);
+  if (p.dropout_on) v = keep_bit(p.seed, step, layer, b, n) ? v * 2.0f : 0.0f;
+  return v;
 }
 
+// The end of step t and the prenet of step t+1, on a cluster of nc =
+// kTailNC CTAs (kTailThreads threads each); rank 0 first counts the launch
+// in flags[kTailRuns].  Every load
+// that waits on no other is issued first: a warp's weights (a projection
+// column, two rows of each prenet layer), the step, the Params, the
+// finished flags, a thread's first alignment value and [h_dec, ctx] (staged
+// rounded into shared memory; the CTA's share of h_dec copied unrounded
+// into the decoder LSTM's next input on the way).  Each CTA computes its
+// columns of the fused mel+gate projection, a warp a column; the CTAs read
+// each other's columns through distributed shared memory, so every CTA
+// holds the whole frame.  Each writes its columns of mel and gate and its
+// share of the alignments for rows not yet finished.  Unless the loop ends
+// here, each then
+// computes its Pc outputs of prenet layer 1 on the frame rounded (dropout
+// bits of step t+1), the CTAs exchange them the same way, and each computes
+// its Pc outputs of layer 2 into the attention LSTM's input.  Rank 0 last
+// advances the finished flags, the step count and the all-done flag, and,
+// inside the graph's loop (`looped`), ends the loop when every row has
+// finished or max_steps steps have run.
+template <typename T, int B>
+__global__ void __cluster_dims__(kTailNC, 1, 1) __launch_bounds__(kTailThreads, 1)
+tail_kernel(TailDims d, const T* __restrict__ w1, const T* __restrict__ w2,
+            const T* __restrict__ pg_w, const float* __restrict__ pg_b, float* __restrict__ xa,
+            float* __restrict__ xd, const float* __restrict__ xp,
+            const float* __restrict__ wprev, int* __restrict__ flags,
+            const Params* __restrict__ prm, cudaGraphConditionalHandle loop, int looped) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int nc = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
+  const TailGeo geo(d, nc);
+  const int N = geo.N, Kp = d.Hd + d.E, n_in = d.n_out, P = d.P;
+  const int c0 = rank * geo.Nc, c1 = min(N, c0 + geo.Nc);  // this CTA's columns
+  const int q0 = rank * geo.Pc, q1 = min(P, q0 + geo.Pc);  // its prenet outputs
+  const int col0 = c0 + warp, n1 = q0 + 2 * warp;           // this warp's first ones
+  const int g0 = rank * blockDim.x + tid, gs = nc * blockDim.x;  // the cluster's threads
+  Chunk<T, 1, kProjNK> wp;
+  Chunk<T, 2, 1> wl1;
+  Chunk<T, 2, 2> wl2;
+  if (col0 < c1) wp.load(pg_w, (size_t)col0, Kp, 0, Kp);
+  if (n1 < q1) {
+    wl1.load(w1, (size_t)n1, n_in, 0, n_in);
+    wl2.load(w2, (size_t)n1, P, 0, P);
+  }
+  const int t = step_of(flags, kNoCap);
+  if (rank == 0 && tid == 0) ++flags[kTailRuns];
+  const Params p = *prm;
+  int* finished = flags + 2;
+  const int fin = tid < B ? finished[tid] : 1;
+  const float wp0 = g0 < B * d.S ? wprev[g0] : 0.0f;
+  extern __shared__ __align__(16) float sm[];
+  float* xs = sm;                        // B * Kp
+  float* own = xs + B * Kp;              // B * up4(Nc)
+  float* frame = own + B * up4(geo.Nc);  // up4(B * N)
+  float* xin = frame + up4(B * N);       // up4(B * n_in)
+  float* h1own = xin + up4(B * n_in);    // B * up4(Pc)
+  float* h1 = h1own + B * up4(geo.Pc);   // B * P
+  __shared__ int active[B];
+  {  // as stage_rows (4 loads of a thread in flight), and the unrounded
+     // vectors i of h_dec with i % nc == rank into xd
+    const int K4 = Kp / 4, n4 = B * K4, hd4 = d.Hd / 4;
+    for (int i0 = tid; i0 < n4; i0 += 4 * blockDim.x) {
+      float4 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * blockDim.x, b = i / K4;
+        if (i < n4)
+          v[u] = *reinterpret_cast<const float4*>(xp + (size_t)b * d.ldp + 4 * (i - b * K4));
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * blockDim.x, b = i / K4, k4 = i - b * K4;
+        if (i >= n4) continue;
+        *reinterpret_cast<float4*>(xs + 4 * i) = rnd4<T>(v[u]);  // [h_dec, ctx] rounded
+        if (k4 < hd4 && i % nc == rank)
+          *reinterpret_cast<float4*>(xd + (size_t)b * d.ldd + d.Ha + d.E + 4 * k4) = v[u];
+      }
+    }
+    if (tid < B) active[tid] = !fin;
+    __syncthreads();
+  }
+  if (t < 0) {  // past the end (every CTA alike): end the graph's loop
+    if (looped && rank == 0 && tid == 0) cudaGraphSetConditional(loop, 0);
+    return;
+  }
+
+  // this CTA's columns [c0, c1) of the projection, a warp a column
+  for (int col = col0; col < c1; col += nw) {
+    float acc[1][B];
+    gemv_rows<T, B, 1, kProjNK>(pg_w, (size_t)col, Kp, xs, acc, 0, Kp, wp, col == col0);
+    if (lane < B) own[lane * geo.Nc + col - c0] = pick(acc, lane) + pg_b[col];
+  }
+  // every CTA's columns are in its shared memory, and every CTA has read
+  // the step and the finished flags (rank 0 rewrites them below)
+  cl.sync();
+  for (int i = tid; i < B * N; i += blockDim.x) {
+    const int b = i / N, col = i - b * N, r = col / geo.Nc;
+    frame[i] = *cl.map_shared_rank(own + b * geo.Nc + col - r * geo.Nc, r);
+  }
+  __syncthreads();
+
+  bool all = true;
+#pragma unroll
+  for (int b = 0; b < B; ++b) all = all && (!active[b] || sigm(frame[b * N + d.n_out]) > p.thr);
+  const bool stop = all || t + 1 >= p.max_steps;
+
+  // outputs of rows not yet finished: this CTA's columns of mel and gate,
+  // its share of the alignments
+  const int nown = max(0, c1 - c0);
+  for (int i = tid; i < B * nown; i += blockDim.x) {
+    const int b = i / nown, col = c0 + i - b * nown;
+    if (!active[b]) continue;
+    const float v = frame[b * N + col];
+    if (col < d.n_out)
+      p.mel_out[((size_t)t * B + b) * d.n_out + col] = v;
+    else
+      p.gate_out[(size_t)t * B + b] = v;
+  }
+  for (int i = g0; i < B * d.S; i += gs)
+    if (active[i / d.S]) p.align_out[(size_t)t * B * d.S + i] = i == g0 ? wp0 : wprev[i];
+
+  // the prenet of step t+1 (2 x linear+ReLU+dropout 0.5) on the frame
+  // rounded, two rows a warp call (lane i takes element i's ReLU, dropout
+  // and store); after every row has finished or at max_steps no step reads it
+  if (!stop) {
+    const int tn = t + 1;
+    for (int i = tid; i < B * n_in; i += blockDim.x) {
+      const int b = i / n_in;
+      xin[i] = rnd<T>(frame[b * N + i - b * n_in]);
+    }
+    __syncthreads();
+    for (int n0 = n1; n0 < q1; n0 += 2 * nw) {
+      float acc[2][B];
+      gemv_rows<T, B, 2, 1>(w1, (size_t)n0, n_in, xin, acc, 0, n_in, wl1, n0 == n1);
+      if (lane < 2 * B) {
+        const int r = lane / B, b = lane - r * B;
+        h1own[b * geo.Pc + n0 - q0 + r] = rnd<T>(relu_drop(pick(acc, lane), p, tn, 0, b, n0 + r));
+      }
+    }
+    cl.sync();  // every CTA's layer-1 outputs
+    for (int i = tid; i < B * P; i += blockDim.x) {
+      const int b = i / P, n = i - b * P, r = n / geo.Pc;
+      h1[i] = *cl.map_shared_rank(h1own + b * geo.Pc + n - r * geo.Pc, r);
+    }
+    __syncthreads();
+    for (int n0 = n1; n0 < q1; n0 += 2 * nw) {
+      float acc[2][B];
+      gemv_rows<T, B, 2, 2>(w2, (size_t)n0, P, h1, acc, 0, P, wl2, n0 == n1);
+      if (lane < 2 * B) {
+        const int r = lane / B, b = lane - r * B;
+        xa[(size_t)b * d.lda + n0 + r] = relu_drop(pick(acc, lane), p, tn, 1, b, n0 + r);
+      }
+    }
+  }
+  // done reading the other CTAs' shared memory; none of them may exit
+  // before every CTA has arrived here (the wait at the end)
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  __syncthreads();
+  if (rank == 0 && tid == 0) {  // after every other write of this CTA
+#pragma unroll
+    for (int b = 0; b < B; ++b)
+      finished[b] = !active[b] || sigm(frame[b * N + d.n_out]) > p.thr;
+    flags[1] = t + 1;
+    flags[0] = stop;
+    if (looped && stop) cudaGraphSetConditional(loop, 0);
+  }
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// What head_kernel does before a call's graph: the call's memory,
+// processed memory and additive mask copied into the entry's arena (the
+// graph's attention kernel reads them there), the recurrent state zeroed
+// (xa, xd, xp, c_att, c_dec, w_prev, w_cum back to back; xa's prenet part
+// too, which is the prenet of the zero first frame: the prenet has no
+// bias), the flags and the tail's count reset and the call's Params written.
+struct HeadArgs {
+  const uint4* mem_src;
+  uint4* mem_dst;
+  size_t mem_vecs;
+  const uint4* pmem_src;
+  uint4* pmem_dst;
+  size_t pmem_vecs;
+  const float* mask_src;
+  float* mask_dst;
+  size_t mask_n;
+  float4* state;
+  size_t state_vecs;
+  int* flags;
+  Params* prm;
+  Params p;
+};
+
+__global__ void head_kernel(HeadArgs h) {
+  const size_t g0 = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+  const size_t gs = (size_t)gridDim.x * blockDim.x;
+  for (size_t i = g0; i < h.mem_vecs; i += gs) h.mem_dst[i] = h.mem_src[i];
+  for (size_t i = g0; i < h.pmem_vecs; i += gs) h.pmem_dst[i] = h.pmem_src[i];
+  for (size_t i = g0; i < h.mask_n; i += gs) h.mask_dst[i] = h.mask_src[i];
+  for (size_t i = g0; i < h.state_vecs; i += gs) h.state[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (g0 < (size_t)kFlags) h.flags[g0] = g0 == 0 ? h.p.max_steps <= 0 : 0;
+  if (g0 == 0) *h.prm = h.p;
+}
+
+// ------------------------------------------------------------ the host side
+
 struct Args {
-  int B, S, E, Ha, Hd, P, A, F, KL, n_out;
+  int dtype, B, S, E, Ha, Hd, P, A, F, KL, n_out, l2_window, use_graph;
   const void *w1, *w2, *att_w, *dec_w, *wq, *locw, *ldw, *v, *pg_w, *mem, *pmem;
   const float *att_b, *dec_b, *pg_b, *addmask;
-  float *xa, *xd, *xp, *c_att, *c_dec, *wprev, *wcum, *out_t;
-  int* flags;
   float *mel_out, *gate_out, *align_out;
-  int max_steps, dropout_on, check_every;
+  int max_steps, dropout_on;
   float thr;
   uint32_t seed;
   cudaStream_t stream;
 };
+
+// Byte offsets of an entry's arena: the recurrent state (floats, back to
+// back, each part a multiple of 4 floats), then the copies of the call's
+// memory, processed memory and mask, the flags and the Params.
+struct Layout {
+  size_t xa, xd, xp, c_att, c_dec, wprev, wcum, state_end, mem, pmem, mask, flags, prm, bytes;
+  Layout(const Args& a, int tb) {
+    auto al = [](size_t x) { return (x + 255) / 256 * 256; };
+    const size_t B = a.B, S = a.S;
+    size_t o = 0;
+    xa = o, o += 4 * B * (a.P + a.E + a.Ha);
+    xd = o, o += 4 * B * (a.Ha + a.E + a.Hd);
+    xp = o, o += 4 * B * (a.Hd + a.E);
+    c_att = o, o += 4 * B * a.Ha;
+    c_dec = o, o += 4 * B * a.Hd;
+    wprev = o, o += 4 * (size_t)up4((int)(B * S));
+    wcum = o, o += 4 * (size_t)up4((int)(B * S));
+    state_end = o;
+    mem = o = al(o), o += B * S * a.E * tb;
+    pmem = o = al(o), o += B * S * a.A * tb;
+    mask = o = al(o), o += 4 * B * S;
+    flags = o = al(o), o += 4 * kFlags;
+    prm = o = al(o), o += sizeof(Params);
+    bytes = al(o);
+  }
+};
+
+// The L2 set-aside for both LSTMs' weights and the windows' hitRatio: the
+// whole of their bytes up to the card's limit on persisting lines, and the
+// share that fits (float32's 71.4 MB do not).
+struct L2Plan {
+  size_t setaside = 0, max_window = 0;
+  float hit = 0.0f;
+};
+
+cudaError_t l2_plan(size_t bytes, L2Plan* pl) {
+  int dev = 0, maxp = 0, maxw = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&maxp, cudaDevAttrMaxPersistingL2CacheSize, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&maxw, cudaDevAttrMaxAccessPolicyWindowSize, dev);
+  pl->setaside = std::min(bytes, (size_t)maxp);
+  pl->max_window = (size_t)maxw;
+  pl->hit = bytes > 0 ? std::min(1.0f, (float)((double)pl->setaside / (double)bytes)) : 0.0f;
+  return err;
+}
+
+cudaAccessPolicyWindow window_of(const void* base, size_t bytes, const L2Plan& pl) {
+  cudaAccessPolicyWindow w = {};
+  w.base_ptr = const_cast<void*>(base);
+  w.num_bytes = std::min(bytes, pl.max_window);
+  w.hitRatio = pl.hit;
+  w.hitProp = cudaAccessPropertyPersisting;
+  w.missProp = cudaAccessPropertyStreaming;
+  return w;
+}
+
+struct Entry {
+  std::vector<long long> key;  // dtype, device, sizes, window flag, weights
+  cudaGraph_t graph;
+  cudaGraphExec_t exec;
+  char* arena;
+  L2Plan l2;
+};
+
+struct Cache {
+  std::mutex mu;                 // held for a whole decode: the arena, this cache, the L2 limit
+  std::vector<Entry> entries;    // most recent first
+  long long captures = 0;        // graphs instantiated so far
+  long long windowed = 0;        // LSTM kernel nodes carrying their window, last graph built
+  L2Plan l2;                     // the last decode's set-aside and hitRatio
+};
+
+Cache& cache() {
+  static Cache* c = new Cache;  // never destroyed: no teardown after the CUDA runtime's
+  return *c;
+}
 
 cudaError_t smem_attr(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -823,91 +1154,308 @@ cudaError_t smem_attr(const void* fn, size_t bytes) {
 }
 
 template <typename T, int B>
-cudaError_t run(const Args& a) {
-  const int N = a.n_out + 1;
+cudaError_t launch_lstm(cudaStream_t s, const cudaAccessPolicyWindow* win, size_t smem,
+                        const T* w, const float* b, const float* x, int K, int H, float* c,
+                        float* h, int ldh, const int* flags) {
+  constexpr int kUnits = kWarps / kSplitK;  // LSTM units per block
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((H + kUnits - 1) / kUnits);
+  cfg.blockDim = dim3(32 * kWarps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute at[1];
+  if (win) {
+    at[0].id = cudaLaunchAttributeAccessPolicyWindow;
+    at[0].val.accessPolicyWindow = *win;
+    cfg.attrs = at;
+    cfg.numAttrs = 1;
+  }
+  return cudaLaunchKernelEx(&cfg, lstm_kernel<T, B>, w, b, x, K, K, H, c, h, ldh, flags, kNoCap);
+}
+
+// The LSTM kernel nodes of `body` whose access-policy window is the one
+// their launch asked for (read back from the captured graph).
+template <typename T, int B>
+cudaError_t count_windows(cudaGraph_t body, const cudaAccessPolicyWindow (&want)[2],
+                          long long* n) {
+  size_t count = 0;
+  cudaError_t err = cudaGraphGetNodes(body, nullptr, &count);
+  std::vector<cudaGraphNode_t> nodes(count);
+  if (err == cudaSuccess && count) err = cudaGraphGetNodes(body, nodes.data(), &count);
+  *n = 0;
+  for (size_t i = 0; err == cudaSuccess && i < count; ++i) {
+    cudaGraphNodeType type;
+    if ((err = cudaGraphNodeGetType(nodes[i], &type)) != cudaSuccess) break;
+    if (type != cudaGraphNodeTypeKernel) continue;
+    cudaKernelNodeParams kp;
+    if ((err = cudaGraphKernelNodeGetParams(nodes[i], &kp)) != cudaSuccess) break;
+    if (kp.func != (void*)lstm_kernel<T, B>) continue;
+    cudaKernelNodeAttrValue v;
+    err = cudaGraphKernelNodeGetAttribute(nodes[i], cudaKernelNodeAttributeAccessPolicyWindow, &v);
+    const cudaAccessPolicyWindow& got = v.accessPolicyWindow;
+    for (const cudaAccessPolicyWindow& w : want)
+      if (err == cudaSuccess && got.base_ptr == w.base_ptr && got.num_bytes == w.num_bytes &&
+          got.hitRatio == w.hitRatio && got.hitProp == w.hitProp && got.missProp == w.missProp)
+        ++*n;
+  }
+  return err;
+}
+
+template <typename T, int B>
+cudaError_t launch_tail(cudaStream_t s, const TailDims& td, const T* w1, const T* w2,
+                        const T* pg_w, const float* pg_b, float* xa, float* xd, const float* xp,
+                        const float* wprev, int* flags, const Params* prm,
+                        cudaGraphConditionalHandle loop, int looped) {
+  tail_kernel<T, B><<<kTailNC, kTailThreads, (size_t)TailGeo::floats(td, kTailNC, B) * 4, s>>>(
+      td, w1, w2, pg_w, pg_b, xa, xd, xp, wprev, flags, prm, loop, looped);
+  return cudaGetLastError();
+}
+
+// Enqueue one step's four kernels on s, every pointer into e's arena;
+// `looped`: inside e's graph, whose loop the tail ends through `loop`.
+template <typename T, int B>
+cudaError_t enqueue_step(const Args& a, const Entry& e, cudaStream_t s,
+                         cudaGraphConditionalHandle loop, int looped) {
   const int Ka = a.P + a.E + a.Ha, Kd = a.Ha + a.E + a.Hd, Kp = a.Hd + a.E;
   const AttDims d{a.S, a.E, a.Ha, a.Hd, a.P, a.A, a.F, a.KL, Ka, Kd, Kp};
-  const size_t sm_pre = (size_t)B * (a.n_out + a.P) * sizeof(float);
-  const size_t sm_la = (size_t)B * Ka * sizeof(float);
-  const size_t sm_ld = (size_t)B * Kd * sizeof(float);
-  const size_t sm_pj = (size_t)B * Kp * sizeof(float);
+  const TailDims td{a.S, a.E, a.Ha, a.Hd, a.P, a.n_out, Ka, Kd, Kp};
+  const size_t sm_la = (size_t)B * Ka * sizeof(float), sm_ld = (size_t)B * Kd * sizeof(float);
   const size_t sm_att = (size_t)AttGeo::floats(d, Vec<T>::N, sizeof(T)) * sizeof(float);
-  cudaError_t err;
-  if ((err = smem_attr((const void*)pre_kernel<T, B>, sm_pre)) != cudaSuccess) return err;
-  if ((err = smem_attr((const void*)lstm_kernel<T, B>, sm_la > sm_ld ? sm_la : sm_ld)) != cudaSuccess)
-    return err;
-  if ((err = smem_attr((const void*)proj_kernel<T, B>, sm_pj)) != cudaSuccess) return err;
-  if ((err = smem_attr((const void*)att_kernel<T>, sm_att)) != cudaSuccess) return err;
-
-  const T* w1 = static_cast<const T*>(a.w1);
-  const T* w2 = static_cast<const T*>(a.w2);
+  const Layout L(a, sizeof(T));
+  char* z = e.arena;
+  float* xa = reinterpret_cast<float*>(z + L.xa);
+  float* xd = reinterpret_cast<float*>(z + L.xd);
+  float* xp = reinterpret_cast<float*>(z + L.xp);
+  float* wprev = reinterpret_cast<float*>(z + L.wprev);
+  int* flags = reinterpret_cast<int*>(z + L.flags);
   const T* att_w = static_cast<const T*>(a.att_w);
   const T* dec_w = static_cast<const T*>(a.dec_w);
-  const T* pg_w = static_cast<const T*>(a.pg_w);
-  const int gemv_threads = 32 * kWarps;
-  constexpr int kUnits = kWarps / kSplitK;  // LSTM units per block
-  auto enqueue_step = [&](cudaStream_t s) {
-    pre_kernel<T, B><<<(a.P + kPreRows - 1) / kPreRows, kPreThreads, sm_pre, s>>>(
-        w1, w2, a.out_t, N, a.n_out, a.P, a.xa, Ka, a.flags, a.max_steps, a.seed,
-        a.dropout_on);
-    lstm_kernel<T, B><<<(a.Ha + kUnits - 1) / kUnits, gemv_threads, sm_la, s>>>(
-        att_w, a.att_b, a.xa, Ka, Ka, a.Ha, a.c_att, a.xd, Kd, a.flags, a.max_steps);
-    att_kernel<T><<<dim3(kNC, B), kThreads, sm_att, s>>>(
-        d, static_cast<const T*>(a.wq), static_cast<const T*>(a.locw),
-        static_cast<const T*>(a.ldw), static_cast<const T*>(a.v),
-        static_cast<const T*>(a.pmem), static_cast<const T*>(a.mem), a.addmask, a.wprev,
-        a.wcum, a.xa, a.xd, a.xp, a.flags, a.max_steps);
-    lstm_kernel<T, B><<<(a.Hd + kUnits - 1) / kUnits, gemv_threads, sm_ld, s>>>(
-        dec_w, a.dec_b, a.xd, Kd, Kd, a.Hd, a.c_dec, a.xp, Kp, a.flags, a.max_steps);
-    proj_kernel<T, B><<<(N + kWarps - 1) / kWarps, gemv_threads, sm_pj, s>>>(
-        pg_w, a.pg_b, a.xp, Kp, Kp, N, a.out_t, a.flags, a.max_steps);
-    fin_kernel<<<1, kThreads, 0, s>>>(B, a.S, a.n_out, N, a.Ha, a.E, a.Hd, a.out_t, a.wprev,
-                                      a.xp, Kp, a.xd, Kd, a.flags, a.mel_out, a.gate_out,
-                                      a.align_out, a.max_steps, a.thr);
-  };
+  const cudaAccessPolicyWindow win[2] = {
+      window_of(att_w, (size_t)4 * a.Ha * Ka * sizeof(T), e.l2),
+      window_of(dec_w, (size_t)4 * a.Hd * Kd * sizeof(T), e.l2)};
 
-  // Capture k steps (6 launches each) into a CUDA graph once, then replay it
-  // on the caller's stream until every row has finished or max_steps steps
-  // have run; the kernels take the step from flags[1] and return at once
-  // past the end.  Capture needs a stream of its own (the caller's may be
-  // the legacy default stream, which cannot be captured).
-  const int k = a.check_every > 0 && a.check_every < a.max_steps ? a.check_every : a.max_steps;
+  cudaError_t err = launch_lstm<T, B>(s, a.l2_window ? &win[0] : nullptr, sm_la, att_w, a.att_b,
+                                      xa, Ka, a.Ha, reinterpret_cast<float*>(z + L.c_att), xd, Kd,
+                                      flags);
+  if (err != cudaSuccess) return err;
+  att_kernel<T><<<dim3(kNC, B), kThreads, sm_att, s>>>(
+      d, static_cast<const T*>(a.wq), static_cast<const T*>(a.locw),
+      static_cast<const T*>(a.ldw), static_cast<const T*>(a.v),
+      reinterpret_cast<const T*>(z + L.pmem), reinterpret_cast<const T*>(z + L.mem),
+      reinterpret_cast<const float*>(z + L.mask), wprev, reinterpret_cast<float*>(z + L.wcum),
+      xa, xd, xp, flags, kNoCap);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = launch_lstm<T, B>(s, a.l2_window ? &win[1] : nullptr, sm_ld, dec_w, a.dec_b, xd, Kd,
+                          a.Hd, reinterpret_cast<float*>(z + L.c_dec), xp, Kp, flags);
+  if (err != cudaSuccess) return err;
+  return launch_tail<T, B>(s, td, static_cast<const T*>(a.w1), static_cast<const T*>(a.w2),
+                           static_cast<const T*>(a.pg_w), a.pg_b, xa, xd, xp, wprev, flags,
+                           reinterpret_cast<const Params*>(z + L.prm), loop, looped);
+}
+
+// Build e's graph: one conditional WHILE node (its handle 1 at every
+// launch) whose body is kUnroll steps' four kernels each (kernels past the
+// end return at once), captured on a stream of its own (the caller's may be
+// the legacy default stream, which cannot be captured).  The LSTM nodes
+// must carry their windows.
+template <typename T, int B>
+cudaError_t build(const Args& a, Entry& e, long long* windowed) {
+  const int Ka = a.P + a.E + a.Ha, Kd = a.Ha + a.E + a.Hd, Kp = a.Hd + a.E;
+  const AttDims d{a.S, a.E, a.Ha, a.Hd, a.P, a.A, a.F, a.KL, Ka, Kd, Kp};
+  const TailDims td{a.S, a.E, a.Ha, a.Hd, a.P, a.n_out, Ka, Kd, Kp};
+  cudaError_t err;
+  if ((err = smem_attr((const void*)lstm_kernel<T, B>, (size_t)B * std::max(Ka, Kd) * 4)) !=
+          cudaSuccess ||
+      (err = smem_attr((const void*)att_kernel<T>,
+                       (size_t)AttGeo::floats(d, Vec<T>::N, sizeof(T)) * 4)) != cudaSuccess ||
+      (err = smem_attr((const void*)tail_kernel<T, B>,
+                       (size_t)TailGeo::floats(td, kTailNC, B) * 4)) != cudaSuccess)
+    return err;
+  const cudaAccessPolicyWindow win[2] = {
+      window_of(a.att_w, (size_t)4 * a.Ha * Ka * sizeof(T), e.l2),
+      window_of(a.dec_w, (size_t)4 * a.Hd * Kd * sizeof(T), e.l2)};
+
+  cudaGraph_t g = nullptr;
+  if ((err = cudaGraphCreate(&g, 0)) != cudaSuccess) return err;
+  cudaGraphConditionalHandle loop = 0;
+  cudaGraphNodeParams cp = {};
+  cudaGraphNode_t node;
   cudaStream_t cs = nullptr;
-  cudaGraph_t graph = nullptr;
-  cudaGraphExec_t exec = nullptr;
-  if ((err = cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking)) != cudaSuccess) return err;
-  if ((err = cudaStreamBeginCapture(cs, cudaStreamCaptureModeThreadLocal)) == cudaSuccess) {
-    for (int i = 0; i < k; ++i) enqueue_step(cs);
-    const cudaError_t launch_err = cudaGetLastError();
-    err = cudaStreamEndCapture(cs, &graph);
-    if (err == cudaSuccess) err = launch_err;
+  if ((err = cudaGraphConditionalHandleCreate(&loop, g, 1, cudaGraphCondAssignDefault)) ==
+      cudaSuccess) {
+    cp.type = cudaGraphNodeTypeConditional;
+    cp.conditional.handle = loop;
+    cp.conditional.type = cudaGraphCondTypeWhile;
+    cp.conditional.size = 1;
+    err = cudaGraphAddNode(&node, g, nullptr, 0, &cp);
   }
-  if (err == cudaSuccess) err = cudaGraphInstantiate(&exec, graph, 0);
-  for (int t = 0; err == cudaSuccess && t < a.max_steps; t += k) {
-    if ((err = cudaGraphLaunch(exec, a.stream)) != cudaSuccess || t + k >= a.max_steps) break;
-    int done = 0;
-    err = cudaMemcpyAsync(&done, a.flags, sizeof(int), cudaMemcpyDeviceToHost, a.stream);
-    if (err == cudaSuccess) err = cudaStreamSynchronize(a.stream);
-    if (done) break;
+  if (err == cudaSuccess) err = cudaStreamCreateWithFlags(&cs, cudaStreamNonBlocking);
+  const cudaGraph_t body = err == cudaSuccess ? cp.conditional.phGraph_out[0] : nullptr;
+  if (err == cudaSuccess)
+    err = cudaStreamBeginCaptureToGraph(cs, body, nullptr, nullptr, 0,
+                                        cudaStreamCaptureModeThreadLocal);
+  if (err == cudaSuccess) {
+    cudaError_t le = cudaSuccess;
+    for (int i = 0; le == cudaSuccess && i < kUnroll; ++i)
+      le = enqueue_step<T, B>(a, e, cs, loop, 1);
+    cudaGraph_t captured = nullptr;
+    err = cudaStreamEndCapture(cs, &captured);
+    if (err == cudaSuccess) err = le;
   }
-  // an executable graph still in flight is freed when its launch completes
-  if (exec) cudaGraphExecDestroy(exec);
-  if (graph) cudaGraphDestroy(graph);
-  cudaStreamDestroy(cs);
+  if (cs) cudaStreamDestroy(cs);
+  *windowed = 0;
+  if (err == cudaSuccess) err = count_windows<T, B>(body, win, windowed);
+  // a window that the graph does not carry is an error, not a slower run
+  if (err == cudaSuccess && a.l2_window && *windowed != 2 * kUnroll) err = cudaErrorInvalidValue;
+  if (err == cudaSuccess) err = cudaGraphInstantiate(&e.exec, g, 0);
+  if (err != cudaSuccess) {
+    cudaGraphDestroy(g);
+    return err;
+  }
+  e.graph = g;
+  return cudaSuccess;
+}
+
+// One decode (under the cache's mutex): the graph of these sizes and
+// weights, built on first use; the head on the caller's stream, the graph
+// after it, one synchronise at the end for the step count and the tail's
+// launches (counts[0], counts[1]); the L2 set-aside only for the decode.
+template <typename T, int B>
+cudaError_t run(const Args& a, int* counts) {
+  Cache& C = cache();
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const std::vector<long long> key = {
+      a.dtype, dev, a.B, a.S, a.E, a.Ha, a.Hd, a.P, a.A, a.F, a.KL, a.n_out, a.l2_window,
+      (long long)a.w1, (long long)a.w2, (long long)a.att_w,
+      (long long)a.att_b,
+      (long long)a.dec_w, (long long)a.dec_b, (long long)a.wq, (long long)a.locw,
+      (long long)a.ldw, (long long)a.v, (long long)a.pg_w, (long long)a.pg_b};
+  auto& es = C.entries;
+  const auto it = std::find_if(es.begin(), es.end(), [&](const Entry& e) { return e.key == key; });
+  const Layout L(a, sizeof(T));
+  if (it != es.end()) {
+    std::rotate(es.begin(), it, it + 1);
+  } else {
+    Entry e{key, nullptr, nullptr, nullptr, {}};
+    const size_t lstm_bytes = (size_t)4 * sizeof(T) *
+                              ((size_t)a.Ha * (a.P + a.E + a.Ha) +
+                               (size_t)a.Hd * (a.Ha + a.E + a.Hd));
+    if ((err = l2_plan(lstm_bytes, &e.l2)) != cudaSuccess) return err;
+    if ((err = cudaMalloc(&e.arena, L.bytes)) != cudaSuccess) return err;
+    if ((err = build<T, B>(a, e, &C.windowed)) != cudaSuccess) {
+      cudaFree(e.arena);
+      return err;
+    }
+    ++C.captures;
+    if ((int)es.size() == kDecodeGraphs) {  // every earlier decode has been synchronised
+      cudaGraphExecDestroy(es.back().exec);
+      cudaGraphDestroy(es.back().graph);
+      cudaFree(es.back().arena);
+      es.pop_back();
+    }
+    es.insert(es.begin(), e);
+  }
+  const Entry& e = es.front();
+  char* z = e.arena;
+  HeadArgs h;
+  h.mem_src = static_cast<const uint4*>(a.mem);
+  h.mem_dst = reinterpret_cast<uint4*>(z + L.mem);
+  h.mem_vecs = (size_t)a.B * a.S * a.E * sizeof(T) / 16;
+  h.pmem_src = static_cast<const uint4*>(a.pmem);
+  h.pmem_dst = reinterpret_cast<uint4*>(z + L.pmem);
+  h.pmem_vecs = (size_t)a.B * a.S * a.A * sizeof(T) / 16;
+  h.mask_src = a.addmask;
+  h.mask_dst = reinterpret_cast<float*>(z + L.mask);
+  h.mask_n = (size_t)a.B * a.S;
+  h.state = reinterpret_cast<float4*>(z + L.xa);
+  h.state_vecs = (L.state_end - L.xa) / 16;
+  h.flags = reinterpret_cast<int*>(z + L.flags);
+  h.prm = reinterpret_cast<Params*>(z + L.prm);
+  h.p = Params{a.mel_out, a.gate_out, a.align_out, a.max_steps, a.dropout_on, a.seed, a.thr};
+
+  size_t before = 0;
+  const bool scoped = a.l2_window != 0;
+  if (scoped) {
+    if ((err = cudaDeviceGetLimit(&before, cudaLimitPersistingL2CacheSize)) != cudaSuccess)
+      return err;
+    if ((err = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, e.l2.setaside)) != cudaSuccess)
+      return err;
+    C.l2 = e.l2;
+  }
+  head_kernel<<<kHeadBlocks, kThreads, 0, a.stream>>>(h);
+  err = cudaGetLastError();
+  if (a.use_graph) {
+    if (err == cudaSuccess) err = cudaGraphLaunch(e.exec, a.stream);
+  } else {  // every step's kernels on the stream (past the end they return at once)
+    for (int i = 0; err == cudaSuccess && i < a.max_steps; ++i)
+      err = enqueue_step<T, B>(a, e, a.stream, 0, 0);
+  }
+  int fl[kFlags] = {};
+  if (err == cudaSuccess)
+    err = cudaMemcpyAsync(fl, h.flags, sizeof(fl), cudaMemcpyDeviceToHost, a.stream);
+  const cudaError_t sync_err = cudaStreamSynchronize(a.stream);
+  if (err == cudaSuccess) err = sync_err;
+  if (scoped) {
+    const cudaError_t r1 = cudaCtxResetPersistingL2Cache();
+    const cudaError_t r2 = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, before);
+    if (err == cudaSuccess) err = r1 != cudaSuccess ? r1 : r2;
+  }
+  counts[0] = fl[1];
+  counts[1] = fl[kTailRuns];
   return err;
 }
 
 template <typename T>
-cudaError_t run_b(const Args& a) {
+cudaError_t run_b(const Args& a, int* counts) {
   switch (a.B) {
-    case 1: return run<T, 1>(a);
-    case 2: return run<T, 2>(a);
-    case 3: return run<T, 3>(a);
-    case 4: return run<T, 4>(a);
-    case 5: return run<T, 5>(a);
-    case 6: return run<T, 6>(a);
-    case 7: return run<T, 7>(a);
-    case 8: return run<T, 8>(a);
+    case 1: return run<T, 1>(a, counts);
+    case 2: return run<T, 2>(a, counts);
+    case 3: return run<T, 3>(a, counts);
+    case 4: return run<T, 4>(a, counts);
+    case 5: return run<T, 5>(a, counts);
+    case 6: return run<T, 6>(a, counts);
+    case 7: return run<T, 7>(a, counts);
+    case 8: return run<T, 8>(a, counts);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The tail alone at step flags[1] (the entry t2v_tail_step): its Params
+// copied to a device buffer of the stream's own, synchronised at the end.
+template <typename T, int B>
+cudaError_t tail_once(const TailDims& td, const void* w1, const void* w2, const void* pg_w,
+                      const float* pg_b, float* xa, float* xd, const float* xp,
+                      const float* wprev, int* flags, const Params& p, cudaStream_t s) {
+  cudaError_t err = smem_attr((const void*)tail_kernel<T, B>,
+                              (size_t)TailGeo::floats(td, kTailNC, B) * 4);
+  Params* prm = nullptr;
+  if (err == cudaSuccess) err = cudaMallocAsync(reinterpret_cast<void**>(&prm), sizeof(p), s);
+  if (err != cudaSuccess) return err;
+  err = cudaMemcpyAsync(prm, &p, sizeof(p), cudaMemcpyHostToDevice, s);
+  if (err == cudaSuccess)
+    err = launch_tail<T, B>(s, td, static_cast<const T*>(w1), static_cast<const T*>(w2),
+                            static_cast<const T*>(pg_w), pg_b, xa, xd, xp, wprev, flags, prm, 0,
+                            0);
+  const cudaError_t free_err = cudaFreeAsync(prm, s);
+  const cudaError_t sync_err = cudaStreamSynchronize(s);
+  return err != cudaSuccess ? err : free_err != cudaSuccess ? free_err : sync_err;
+}
+
+template <typename T>
+cudaError_t tail_b(int B, const TailDims& td, const void* w1, const void* w2, const void* pg_w,
+                   const float* pg_b, float* xa, float* xd, const float* xp,
+                   const float* wprev, int* flags, const Params& p, cudaStream_t s) {
+  switch (B) {
+    case 1: return tail_once<T, 1>(td, w1, w2, pg_w, pg_b, xa, xd, xp, wprev, flags, p, s);
+    case 2: return tail_once<T, 2>(td, w1, w2, pg_w, pg_b, xa, xd, xp, wprev, flags, p, s);
+    case 3: return tail_once<T, 3>(td, w1, w2, pg_w, pg_b, xa, xd, xp, wprev, flags, p, s);
+    case 4: return tail_once<T, 4>(td, w1, w2, pg_w, pg_b, xa, xd, xp, wprev, flags, p, s);
+    case 5: return tail_once<T, 5>(td, w1, w2, pg_w, pg_b, xa, xd, xp, wprev, flags, p, s);
+    case 6: return tail_once<T, 6>(td, w1, w2, pg_w, pg_b, xa, xd, xp, wprev, flags, p, s);
+    case 7: return tail_once<T, 7>(td, w1, w2, pg_w, pg_b, xa, xd, xp, wprev, flags, p, s);
+    case 8: return tail_once<T, 8>(td, w1, w2, pg_w, pg_b, xa, xd, xp, wprev, flags, p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -920,36 +1468,93 @@ cudaError_t run_b(const Args& a) {
 //   dec_w (4Hd, Ha+E+Hd), dec_b (4Hd); wq (A, Ha); locw (KL, 2, F);
 //   ldw (F, A); v (A); pg_w (n_out+1, Hd+E), pg_b (n_out+1);
 //   mem (B, S, E), pmem (B, S, A) in the weight dtype; addmask (B, S) f32.
-// Work buffers (f32, zeroed by the caller): xa (B, P+E+Ha), xd (B, Ha+E+Hd),
-//   xp (B, Hd+E), c_att (B, Ha), c_dec (B, Hd), wprev, wcum (B, S),
-//   out_t (B, n_out+1); flags int32 (2+B) zeroed: [all_done, steps, finished..].
 // Outputs (f32, zeroed by the caller): mel_out (max_steps, B, n_out),
-//   gate_out (max_steps, B), align_out (max_steps, B, S).
-// Returns a cudaError_t (0 on success).
+//   gate_out (max_steps, B), align_out (max_steps, B, S); counts[0] = the
+//   steps run, counts[1] = the tail kernel's launches (counted on the
+//   device).  l2_window: 1 gives the LSTM launches their L2 window and
+//   scopes the set-aside to the call; use_graph: 1 runs the step loop as
+//   the cached graph, 0 launches every step's kernels on the stream
+//   (max_steps steps; for the profiler, which does not see the launches of
+//   a conditional node's body one by one).
+// Synchronises the stream before it returns.  Returns a cudaError_t (0 on
+// success).
 extern "C" int t2v_decode_loop(
     int dtype, int B, int S, int E, int Ha, int Hd, int P, int A, int F, int KL, int n_out,
     const void* w1, const void* w2, const void* att_w, const float* att_b,
     const void* dec_w, const float* dec_b, const void* wq, const void* locw,
     const void* ldw, const void* v, const void* pg_w, const float* pg_b,
     const void* mem, const void* pmem, const float* addmask,
-    float* xa, float* xd, float* xp, float* c_att, float* c_dec, float* wprev, float* wcum,
-    float* out_t, int* flags, float* mel_out, float* gate_out, float* align_out,
-    int max_steps, float thr, unsigned int seed, int dropout_on, int check_every,
-    void* stream) {
+    float* mel_out, float* gate_out, float* align_out,
+    int max_steps, float thr, unsigned int seed, int dropout_on, int l2_window, int use_graph,
+    int* counts, void* stream) {
   if (B < 1 || B > 8 || A % 32 != 0 || A % (4 * kNC) != 0 || kThreads % A != 0 ||
-      F > kMaxF || F % 4 != 0 || P % 16 != 0 || E > 4 * kNC * kThreads)
+      F > kMaxF || F % 4 != 0 || P % 16 != 0 || E > 4 * kNC * kThreads || counts == nullptr)
     return (int)cudaErrorInvalidValue;
-  Args a{B, S, E, Ha, Hd, P, A, F, KL, n_out,
+  Args a{dtype, B, S, E, Ha, Hd, P, A, F, KL, n_out, l2_window, use_graph,
          w1, w2, att_w, dec_w, wq, locw, ldw, v, pg_w, mem, pmem,
          att_b, dec_b, pg_b, addmask,
-         xa, xd, xp, c_att, c_dec, wprev, wcum, out_t, flags,
          mel_out, gate_out, align_out,
-         max_steps, dropout_on, check_every, thr, seed,
+         max_steps, dropout_on, thr, seed,
          static_cast<cudaStream_t>(stream)};
+  std::lock_guard<std::mutex> lock(cache().mu);
   switch (dtype) {
-    case 0: return (int)run_b<float>(a);
-    case 1: return (int)run_b<__nv_bfloat16>(a);
-    case 2: return (int)run_b<__half>(a);
+    case 0: return (int)run_b<float>(a, counts);
+    case 1: return (int)run_b<__nv_bfloat16>(a, counts);
+    case 2: return (int)run_b<__half>(a, counts);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The tail kernel alone, once, on the caller's tensors (its check against
+// its plain version, ops/decoder_loop.py tail_step): step flags[1] of a
+// decode with flags (kFlags ints: done, step, finished[B], ..., the tail's
+// count in the last) whose decoder LSTM has written xp (B, Hd+E) = [h_dec,
+// ctx] and whose attention wrote wprev (B, S).  Writes the step's outputs
+// (mel_out, gate_out, align_out as in t2v_decode_loop) for rows not yet
+// finished, h_dec into xd (B, Ha+E+Hd) at column Ha+E, the prenet of step
+// t+1 into xa (B, P+E+Ha) at column 0 unless the decode stops here, and
+// the flags.  Weights and dtype as t2v_decode_loop's.  Synchronises the
+// stream before it returns; returns a cudaError_t.
+extern "C" int t2v_tail_step(int dtype, int B, int S, int E, int Ha, int Hd, int P, int n_out,
+                             const void* w1, const void* w2, const void* pg_w,
+                             const float* pg_b, float* xa, float* xd, const float* xp,
+                             const float* wprev, int* flags, float* mel_out, float* gate_out,
+                             float* align_out, int max_steps, float thr, unsigned int seed,
+                             int dropout_on, void* stream) {
+  if (B < 1 || B > 8 || P % 16 != 0) return (int)cudaErrorInvalidValue;
+  const TailDims td{S, E, Ha, Hd, P, n_out, P + E + Ha, Ha + E + Hd, Hd + E};
+  const Params p{mel_out, gate_out, align_out, max_steps, dropout_on, seed, thr};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return (int)tail_b<float>(B, td, w1, w2, pg_w, pg_b, xa, xd, xp, wprev, flags, p, s);
+    case 1:
+      return (int)tail_b<__nv_bfloat16>(B, td, w1, w2, pg_w, pg_b, xa, xd, xp, wprev, flags, p,
+                                         s);
+    case 2: return (int)tail_b<__half>(B, td, w1, w2, pg_w, pg_b, xa, xd, xp, wprev, flags, p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// out[0..n) of: graphs instantiated so far; the card's most persisting-L2
+// bytes; its largest access-policy window; the persisting-L2 limit now;
+// LSTM kernel nodes carrying their window in the last graph built; the last
+// decode's set-aside; its hitRatio x 1e6; the CUDA runtime's and the
+// driver's versions.  Returns a cudaError_t.
+extern "C" int t2v_decode_info(long long* out, int n) {
+  Cache& C = cache();
+  std::lock_guard<std::mutex> lock(C.mu);
+  int dev = 0, maxp = 0, maxw = 0, runtime = 0, driver = 0;
+  size_t limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaRuntimeGetVersion(&runtime);
+  if (err == cudaSuccess) err = cudaDriverGetVersion(&driver);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&maxp, cudaDevAttrMaxPersistingL2CacheSize, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&maxw, cudaDevAttrMaxAccessPolicyWindowSize, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetLimit(&limit, cudaLimitPersistingL2CacheSize);
+  const long long v[9] = {C.captures, maxp, maxw, (long long)limit, C.windowed,
+                          (long long)C.l2.setaside, (long long)(C.l2.hit * 1e6), runtime, driver};
+  for (int i = 0; i < n && i < 9; ++i) out[i] = v[i];
+  return (int)err;
 }

@@ -4,10 +4,15 @@
 1 <= B <= 8 rows: prenet (dropout always on) -> attention LSTM ->
 location-sensitive attention -> decoder LSTM -> fused mel+gate projection,
 until every row's gate has fired or ``max_steps``.  On a CUDA tensor it
-launches the hand-written kernel set; on a CPU tensor it runs
-``decode_loop_plain``, the same loop in PyTorch on the same packed weights,
-with the kernel's casting points and its dropout hash.  It counts its
-kernel launches in ``decode_loop.launches``.
+launches the hand-written kernel set (four kernels a step, looped on the
+device by one CUDA graph per set of sizes and weights, reused across
+calls); on a CPU tensor it runs ``decode_loop_plain``, the same loop in
+PyTorch on the same packed weights, with the kernel's casting points and
+its dropout hash.  It counts its calls of the kernel in
+``decode_loop.launches`` and the launches of its tail kernel, which the
+kernel counts on the device, in ``decode_loop.tail_launches``.
+``tail_step`` runs the tail kernel alone, once (``tail_step_plain`` on the
+CPU), to hold it against its plain version.
 
 Return contract (JAX ``decoder.infer``): mel (B, n_mel, max_steps*r),
 gate (B, max_steps), alignments (B, max_steps, S), lengths (B,) in frames
@@ -25,8 +30,14 @@ import torch
 from . import _build
 
 MAX_ROWS = 8          # rows one launch serves (the serving micro-batch cap)
-CHECK_EVERY = 8       # steps between host reads of the all-finished flag
 CLUSTER = 8           # CTAs of the attention kernel's cluster per row (kNC in the source)
+TAIL_CLUSTER = 8      # CTAs of the tail kernel's cluster (kTailNC in the source)
+GRAPHS = 8            # executable graphs kept, one per set of sizes and weights (kDecodeGraphs)
+UNROLL = 8            # steps in the body of the graph's device-side loop (kUnroll)
+FLAGS = 16            # ints of the kernel's flags (kFlags; the tail's count in the last)
+# True: the step loop runs as one cached CUDA graph that loops on the device;
+# False: every step's kernels launch on the stream (the profiler sees each)
+USE_GRAPH = True
 # The weight dtypes' codes in ``t2v_decode_loop`` (the C side refuses any other)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _F32_MIN = float(np.finfo(np.float32).min)
@@ -188,6 +199,50 @@ def decode_loop_plain(kw, memory, pmem, mask, *, max_steps: int,
     return mel_buf, gate_buf, align_buf, t
 
 
+def tail_step_plain(kw, xa, xd, xp, wprev, flags, mel, gate, align, *, max_steps: int,
+                    gate_threshold: float, seed: int, dropout_on: bool = True):
+    """What the tail kernel does at step t = flags[1], in PyTorch, in place:
+    h_dec (the first Hd columns of xp = [h_dec, ctx]) into xd's last Hd
+    columns, one more tail launch counted in flags[-1]; then, unless the
+    decode has ended (flags[0]), the projection of xp rounded, the step's
+    mel, gate and alignments (wprev) for rows not yet finished (flags[2 +
+    b] == 0), the prenet of step t + 1 on the frame into xa's first P
+    columns unless the decode stops here (every row finished, or t + 1 ==
+    max_steps), and the flags: finished, step t + 1, done."""
+    dev = xp.device
+    dt = kw["att_w"].dtype
+    B = xp.shape[0]
+    P, n_out = kw["w1"].shape
+    Hd = kw["dec_w"].shape[0] // 4
+
+    def c(x):
+        return x.to(dt).float()
+
+    xd[:, xd.shape[1] - Hd:] = xp[:, :Hd]
+    flags[FLAGS - 1] += 1
+    t = int(flags[1])
+    if int(flags[0]):
+        return
+    out = c(xp) @ kw["pg_w"].float().t() + kw["pg_b"]
+    active = flags[2:2 + B] == 0
+    mel[t] = torch.where(active[:, None], out[:, :n_out], mel[t])
+    gate[t] = torch.where(active, out[:, n_out], gate[t])
+    align[t] = torch.where(active[:, None], wprev, align[t])
+    finished = ~active | (torch.sigmoid(out[:, n_out]) > gate_threshold)
+    stop = bool(finished.all()) or t + 1 >= max_steps
+    if not stop:
+        x = torch.relu(c(out[:, :n_out]) @ kw["w1"].float().t())
+        if dropout_on:
+            x = x * dropout_keep(seed, t + 1, 0, B, P, dev) * 2.0
+        x = torch.relu(c(x) @ kw["w2"].float().t())
+        if dropout_on:
+            x = x * dropout_keep(seed, t + 1, 1, B, P, dev) * 2.0
+        xa[:, :P] = x
+    flags[2:2 + B] = finished.int()
+    flags[1] = t + 1
+    flags[0] = int(stop)
+
+
 def finish(mel_buf, gate_buf, align_buf, steps: int, gate_threshold: float,
            r: int):
     """Raw loop buffers -> the decoder.infer contract (lengths in frames)."""
@@ -220,10 +275,47 @@ def _kernel_fn():
     """``t2v_decode_loop`` with its C signature, resolved once."""
     fn = _build.load("decoder_loop").t2v_decode_loop
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] * 11 + [ctypes.c_void_p] * 27
+    fn.argtypes = ([ctypes.c_int] * 11 + [ctypes.c_void_p] * 18
                    + [ctypes.c_int, ctypes.c_float, ctypes.c_uint, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     return fn
+
+
+INFO = ("graphs_instantiated", "max_persisting_l2_bytes", "max_window_bytes",
+        "persisting_l2_limit", "windowed_lstm_nodes", "l2_setaside_bytes", "hit_ratio",
+        "cuda_runtime", "cuda_driver")
+
+
+def info() -> dict:
+    """The kernel's host-side state on the current card: graphs instantiated
+    so far in this process (one per set of sizes and weights not among the
+    last ``GRAPHS``), the card's largest persisting-L2 set-aside and access
+    window, the persisting-L2 limit now (the decode restores it), the LSTM
+    graph nodes that carry their window in the last graph built, the last
+    decode's set-aside and hitRatio, and the CUDA runtime's and driver's
+    versions (conditional graph nodes need 12.3 or later)."""
+    fn = _build.load("decoder_loop").t2v_decode_info
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_void_p, ctypes.c_int]
+    out = (ctypes.c_longlong * len(INFO))()
+    _build.check(fn(out, len(INFO)), "t2v_decode_info")
+    vals = dict(zip(INFO, out))
+    vals["hit_ratio"] /= 1e6
+    return vals
+
+
+def l2_window(kw) -> bool:
+    """Whether a decode with the packed weights ``kw`` gives its LSTM
+    launches an L2 access-policy window (and sets L2 aside for the decode):
+    only where both LSTMs' weights exceed the card's L2.  At full width
+    that is float32 (71.4 MB of 50 MB); bf16's 35.7 MB stay in L2 without
+    it, and the window there did not pay (PERF.md)."""
+    lstm_bytes = sum(kw[k].numel() * kw[k].element_size() for k in ("att_w", "dec_w"))
+    return lstm_bytes > torch.cuda.get_device_properties(kw["att_w"].device).L2_cache_size
+
+
+def graph_captures() -> int:
+    """Decode graphs instantiated so far in this process."""
+    return info()["graphs_instantiated"]
 
 
 def _run_kernel(kw, memory, pmem, mask, *, max_steps, gate_threshold, seed,
@@ -264,23 +356,20 @@ def _run_kernel(kw, memory, pmem, mask, *, max_steps, gate_threshold, seed,
     pm = pmem.to(dt).contiguous()
     add = additive_mask(mask, B, S, dev).contiguous()
     z = lambda *s: torch.zeros(s, dtype=torch.float32, device=dev)  # noqa: E731
-    work = [z(B, P + E + Ha), z(B, Ha + E + Hd), z(B, Hd + E), z(B, Ha), z(B, Hd),
-            z(B, S), z(B, S), z(B, n_out + 1)]
-    flags = torch.zeros(2 + B, dtype=torch.int32, device=dev)
     mel_buf, gate_buf, align_buf = z(max_steps, B, n_out), z(max_steps, B), z(max_steps, B, S)
+    counts = (ctypes.c_int * 2)()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _kernel_fn()(
         DTYPES[dt], B, S, E, Ha, Hd, P, A, F, KL, n_out,
         *(_ptr(kw[k]) for k in ("w1", "w2", "att_w", "att_b", "dec_w", "dec_b",
                                 "wq", "locw", "ldw", "v", "pg_w", "pg_b")),
-        _ptr(mem), _ptr(pm), _ptr(add), *(_ptr(w) for w in work), _ptr(flags),
-        _ptr(mel_buf), _ptr(gate_buf), _ptr(align_buf),
+        _ptr(mem), _ptr(pm), _ptr(add), _ptr(mel_buf), _ptr(gate_buf), _ptr(align_buf),
         max_steps, float(gate_threshold), seed & _M32, int(bool(dropout_on)),
-        CHECK_EVERY, ctypes.c_void_p(stream))
+        int(l2_window(kw)), int(bool(USE_GRAPH)), counts, ctypes.c_void_p(stream))
     _build.check(err, "t2v_decode_loop")
     decode_loop.launches += 1
-    steps = int(flags[1].item())
-    return mel_buf, gate_buf, align_buf, steps
+    decode_loop.tail_launches += counts[1]
+    return mel_buf, gate_buf, align_buf, counts[0]
 
 
 def decode_loop(kw, memory, pmem, mask=None, *, max_steps: int,
@@ -304,4 +393,46 @@ def decode_loop(kw, memory, pmem, mask=None, *, max_steps: int,
     return finish(*bufs, gate_threshold, r)
 
 
+def tail_step(kw, xa, xd, xp, wprev, flags, mel, gate, align, *, max_steps: int,
+              gate_threshold: float, seed: int, dropout_on: bool = True):
+    """The tail kernel alone, once, at step flags[1], in place: what
+    ``tail_step_plain`` computes, which runs instead on CPU tensors.  It is
+    the kernel's own check against its plain version, not a path of the
+    decode.  kw: ``pack_weights`` output; float32 xa (B, P+E+Ha), xd (B,
+    Ha+E+Hd), xp (B, Hd+E), wprev (B, S), mel (max_steps, B, n_out), gate
+    (max_steps, B), align (max_steps, B, S); int32 flags (FLAGS,)."""
+    if xp.device.type == "cpu":
+        return tail_step_plain(kw, xa, xd, xp, wprev, flags, mel, gate, align,
+                               max_steps=max_steps, gate_threshold=gate_threshold, seed=seed,
+                               dropout_on=dropout_on)
+    if not xp.is_cuda:
+        raise ValueError(f"tail_step runs on CUDA or CPU, not {xp.device}")
+    dt = kw["att_w"].dtype
+    B, S = wprev.shape
+    Ha, Hd = kw["att_w"].shape[0] // 4, kw["dec_w"].shape[0] // 4
+    P, n_out = kw["w1"].shape
+    E = xp.shape[1] - Hd
+    want = {"xa": (xa, (B, P + E + Ha)), "xd": (xd, (B, Ha + E + Hd)), "xp": (xp, (B, Hd + E)),
+            "wprev": (wprev, (B, S)), "mel": (mel, (max_steps, B, n_out)),
+            "gate": (gate, (max_steps, B)), "align": (align, (max_steps, B, S))}
+    for name, (x, shape) in want.items():
+        if x.dtype != torch.float32 or tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(f"tail_step: {name} must be contiguous float32 {shape}")
+    if flags.dtype != torch.int32 or tuple(flags.shape) != (FLAGS,) or dt not in DTYPES:
+        raise ValueError(f"tail_step: flags must be int32 ({FLAGS},), weights one of "
+                         f"{list(DTYPES)}")
+    fn = _build.load("decoder_loop").t2v_tail_step
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] * 8 + [ctypes.c_void_p] * 12
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p])
+    err = fn(DTYPES[dt], B, S, E, Ha, Hd, P, n_out,
+             *(_ptr(kw[k]) for k in ("w1", "w2", "pg_w", "pg_b")),
+             *(_ptr(x) for x in (xa, xd, xp, wprev, flags, mel, gate, align)),
+             max_steps, float(gate_threshold), seed & _M32, int(bool(dropout_on)),
+             ctypes.c_void_p(torch.cuda.current_stream(xp.device).cuda_stream))
+    _build.check(err, "t2v_tail_step")
+    decode_loop.tail_launches += 1
+
+
 decode_loop.launches = 0
+decode_loop.tail_launches = 0

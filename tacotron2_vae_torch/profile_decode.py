@@ -2,16 +2,26 @@
 
     python -m tacotron2_vae_torch.profile_decode
 
-For B in ``ROWS`` and each weight dtype: the wall time of one ``decode_loop``
-call (CUDA events), then one call under ``torch.profiler`` with the device
-time of each of K1's kernels (sum, count, mean) and the device's busy share
-of the call.  Random full-width weights from a fixed seed, S=64, the gate
-threshold above every sigmoid so every call runs ``STEPS`` steps (the
-shape ``chip_smoke.py`` holds the kernel against its twin at).  Then,
-per batch size, the split of one ``Tacotron2.infer`` call (S=32 text, 600
-steps, the serving path of ``chip_smoke.py``) into encoder, decode loop and
-postnet, by host clock around synchronised stages.  Prints one JSON line per
-configuration.  Needs a CUDA card.
+First the kernel's L2 facts on this card (``decoder_loop.info``: the most
+bytes it may set aside for persisting lines, the largest access-policy
+window, the persisting limit before any decode).  For B in ``ROWS`` and
+each weight dtype: the wall time of one ``decode_loop`` call (CUDA events,
+its step loop as the cached graph, mean of 3) and the graphs instantiated
+over those calls (0: a repeated call at one shape reuses its graph); then
+one call that launches each step's kernels on the stream
+(``decoder_loop.USE_GRAPH = False``: the profiler does not see the
+launches of a conditional graph node's body one by one), under
+``torch.profiler`` and between two CUDA events: the device time of each of
+K1's kernels (sum, count, mean), that call's wall time and the device's
+busy share of it (kernel time over that wall time; both from the one
+stream-launched call, so the share is not the graph's).  Random full-width
+weights from a fixed seed, S=64, the gate threshold above every sigmoid so
+every call runs ``STEPS`` steps (the shape ``chip_smoke.py`` holds the
+kernel against its twin at).  Then, per batch size, the split of one
+``Tacotron2.infer`` call (S=32 text, 600 steps, the serving path of
+``chip_smoke.py``) into encoder, decode loop and postnet, by host clock
+around synchronised stages.  Prints one JSON line per configuration.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ def profile(dec, B, S, steps, dtype, device, seed=0):
 
     run()
     torch.cuda.synchronize()
+    graphs = dl.graph_captures()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(3):
@@ -53,10 +64,21 @@ def profile(dec, B, S, steps, dtype, device, seed=0):
     torch.cuda.synchronize()
     wall_ms = start.elapsed_time(end) / 3
 
+    # the profiler does not see a conditional graph node's body launch by
+    # launch, so the profiled call launches each step's kernels on the stream
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    use_graph, dl.USE_GRAPH = dl.USE_GRAPH, False
+    try:
         run()
         torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+        stream_ms = start.elapsed_time(end)
+    finally:
+        dl.USE_GRAPH = use_graph
     kernels = {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -67,9 +89,9 @@ def profile(dec, B, S, steps, dtype, device, seed=0):
     busy_us = sum(k["total_us"] for k in kernels.values())
     return {"B": B, "S": S, "steps": steps, "dtype": str(dtype).replace("torch.", ""),
             "wall_ms": wall_ms, "us_per_step": wall_ms * 1e3 / steps,
-            "kernel_us_per_step": busy_us / steps,
-            "device_busy_share": busy_us / (wall_ms * 1e3) if wall_ms else None,
-            "kernels": kernels}
+            "stream_ms": stream_ms, "kernel_us_per_step": busy_us / steps,
+            "device_busy_share": busy_us / (stream_ms * 1e3) if stream_ms else None,
+            "graphs_instantiated": dl.graph_captures() - graphs, "kernels": kernels}
 
 
 @torch.no_grad()
@@ -119,6 +141,7 @@ def main():
     with torch.no_grad():
         model.decoder.gate_layer.linear_layer.bias.fill_(-10.0)
     model = model.to(device).eval().requires_grad_(False)
+    print(json.dumps({"l2": dl.info(), "card": card}), flush=True)
     for dtype in DTYPES:
         for B in ROWS:
             row = profile(model.decoder, B, SEQ, STEPS, dtype, device)

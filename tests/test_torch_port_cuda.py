@@ -14,7 +14,17 @@ S split unevenly over K1's 8-CTA attention cluster in chunks of ceil(S / 8)
 an empty last; 70: seven of 9 and one of 7; 16 and 80) at B = 1, 3, 4 and
 8; K2 at even and odd frame counts, at the shortest clip it takes (n =
 n_fft/2 + 1) and at n_fft 512, 1024 and 2048; two calls of K1 and of K2 bit
-for bit alike.
+for bit alike.  K1's graph: one instantiation per set of sizes and weights,
+reused by calls on new memory, at a new step cap and at a shape seen
+before, each call against the twin, an earlier call's outputs untouched by
+later ones; the gate firing at steps 1, 2 and 3 ends the device-side loop
+where the twin ends; the tail kernel's launches counted on the device, a
+loop body's worth a graph iteration; the persisting-L2 limit is back to its
+value after a decode whose LSTM weights exceed L2 (float32 at full width),
+whose graph's two LSTM nodes a step carry their window; the tail kernel
+alone against its plain version on the same state (a row finished, the step
+cap, past the end: the frame to K1's early limit, the copies and flags
+exactly, the next prenet to K1's whole-run mel limit).
 Tolerances: K1 per
 output, over the first steps and the whole run, by ``chip_smoke.k1_compare``
 (f32: sum order only; bf16 and float16: the same casting points, sum order
@@ -120,6 +130,163 @@ def test_decode_loop_kernel_is_deterministic_on_card(cuda_device, dtype):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_decode_loop_graph_is_reused_across_calls_on_card(cuda_device, dtype):
+    """One graph per set of sizes and weights: a call on new memory, a new
+    step cap and a shape seen before instantiate none; a new S and a new B
+    one each.  Every call matches the twin at K1's limits, and a call's
+    outputs stay as they were after later calls (no buffer shared)."""
+    # (B, S, max_steps, graphs the call instantiates); shapes no other test uses
+    calls = [(2, 21, 30, 1), (2, 21, 30, 0), (2, 22, 30, 1), (5, 22, 30, 1), (5, 22, 12, 0),
+             (2, 21, 30, 0)]
+    hp = create_hparams(TINY)
+    model = init_weights(Tacotron2(hp), torch.Generator().manual_seed(0))
+    dec = model.to(cuda_device).eval().requires_grad_(False).decoder
+    kw = dl.pack_weights(dec, getattr(torch, dtype))
+    rng = np.random.RandomState(4)
+    kept = None
+    for B, S, steps, new in calls:
+        memory = torch.from_numpy((rng.randn(B, S, hp.encoder_embedding_dim) * 0.3)
+                                  .astype(np.float32)).to(cuda_device)
+        mask = torch.arange(S, device=cuda_device)[None] < torch.tensor(
+            [S - 3 * i for i in range(B)], device=cuda_device)[:, None]
+        pmem = linear(memory, dec.attention_layer.memory_layer.linear_layer.weight)
+        args = dict(max_steps=steps, gate_threshold=1.1, seed=9, dropout_on=True)
+        before = dl.graph_captures()
+        got = dl.decode_loop(kw, memory, pmem, mask, **args)
+        assert dl.graph_captures() - before == new, (B, S, steps)
+        want = dl.finish(*dl.decode_loop_plain(kw, memory, pmem, mask, **args), 1.1, 1)
+        errs, fails = k1_compare(got, want, dtype, 1)
+        assert not fails, (B, S, steps, errs)
+        if kept is None:
+            kept, first = [x.clone() for x in got], got
+    for a, b in zip(kept, first):
+        assert torch.equal(a, b)
+
+
+def _gate_inputs(device, dtype):
+    """TINY weights, one row at S=16, and a dropout seed under which the
+    gate, with its bias zeroed and its weight row scaled by +-2^8 (exact in
+    every dtype; the gate feeds nothing back), rises over the first three
+    steps by at least 0.05 a step: so a bias can make it fire first at step
+    1, 2 or 3."""
+    (kw, memory, pmem, mask), args = _decode_inputs(device, dtype, 1, 16, [16])
+    n_out = kw["pg_w"].shape[0] - 1
+    kw = dict(kw, pg_w=kw["pg_w"].clone(), pg_b=kw["pg_b"].clone())
+    kw["pg_b"][n_out] = 0.0
+    for seed in range(64):
+        args = dict(args, seed=seed, max_steps=8, gate_threshold=1.1)
+        gate = dl.decode_loop_plain(kw, memory, pmem, mask, **args)[1][:3, 0]
+        for scale in (256.0, -256.0):
+            if bool((scale * (gate[1:] - gate[:-1]) > 0.05).all()):
+                kw["pg_w"][n_out] *= scale
+                return (kw, memory, pmem, mask), args, (scale * gate).tolist()
+    raise AssertionError("no seed below 64 makes the gate rise over three steps")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fire", [1, 2, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_loop_gate_ends_the_device_loop_on_card(cuda_device, dtype, fire):
+    """The gate firing first at step 1, 2 or 3 of 8 ends the graph's
+    device-side loop there: the twin's step count and outputs."""
+    (kw, memory, pmem, mask), args, gate = _gate_inputs(cuda_device, dtype)
+    n_out = kw["pg_w"].shape[0] - 1
+    below = gate[fire - 2] if fire > 1 else gate[0] - 1.0
+    kw["pg_b"][n_out] = -(gate[fire - 1] + below) / 2  # sigmoid crosses 0.5 at step `fire`
+    args = dict(args, gate_threshold=0.5)
+    got = dl.decode_loop(kw, memory, pmem, mask, **args)
+    want = dl.finish(*dl.decode_loop_plain(kw, memory, pmem, mask, **args), 0.5, 1)
+    assert got[3].tolist() == [fire] == want[3].tolist()
+    errs, fails = k1_compare(got, want, dtype, 1)
+    assert not fails, errs
+
+
+@pytest.mark.cuda
+def test_decode_loop_restores_the_persisting_l2_limit_on_card(cuda_device):
+    """A decode whose LSTM weights exceed L2 (float32 at the full-width
+    defaults) sets L2 aside for the decode alone; the graph's LSTM nodes
+    (two a step of its loop's body) carry their window, whose hitRatio is
+    the set-aside's share.  TINY weights fit and take no window."""
+    hp = create_hparams()
+    model = init_weights(Tacotron2(hp), torch.Generator().manual_seed(0))
+    dec = model.decoder.to(cuda_device).eval().requires_grad_(False)
+    kw = dl.pack_weights(dec, torch.float32)
+    assert dl.l2_window(kw)
+    assert not dl.l2_window(_decode_inputs(cuda_device, "float32", 1, 16, [16])[0][0])
+    memory = torch.from_numpy((np.random.RandomState(2).randn(2, 16, hp.encoder_embedding_dim)
+                               * 0.3).astype(np.float32)).to(cuda_device)
+    pmem = linear(memory, dec.attention_layer.memory_layer.linear_layer.weight)
+    args = dict(max_steps=12, gate_threshold=1.1, seed=9, dropout_on=True)
+    before = dl.info()
+    got = dl.decode_loop(kw, memory, pmem, None, **args)
+    after = dl.info()
+    want = dl.finish(*dl.decode_loop_plain(kw, memory, pmem, None, **args), 1.1, 1)
+    errs, fails = k1_compare(got, want, "float32", 1)
+    assert not fails, errs
+    assert after["persisting_l2_limit"] == before["persisting_l2_limit"]
+    assert after["windowed_lstm_nodes"] == 2 * dl.UNROLL
+    assert 0 < after["l2_setaside_bytes"] <= after["max_persisting_l2_bytes"]
+    assert 0.0 < after["hit_ratio"] <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_graph", [True, False], ids=["graph", "stream"])
+def test_decode_loop_counts_tail_launches_on_device(cuda_device, monkeypatch, use_graph):
+    """The tail kernel counts its own launches: in the graph, the loop's
+    body (UNROLL steps) runs until the step that ends the decode; on the
+    stream, every one of max_steps steps is launched (past the end each
+    returns at once)."""
+    monkeypatch.setattr(dl, "USE_GRAPH", use_graph)
+    inputs, args = _decode_inputs(cuda_device, "bfloat16", 2, 16, [16, 9])
+    for steps in (1, 8, 13):
+        before = dl.decode_loop.tail_launches
+        dl.decode_loop(*inputs, **dict(args, max_steps=steps))
+        want = -(-steps // dl.UNROLL) * dl.UNROLL if use_graph else steps
+        assert dl.decode_loop.tail_launches - before == want, steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,done", [(3, 0), (11, 0), (4, 1)], ids=["step", "cap", "ended"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_tail_kernel_matches_plain_on_card(cuda_device, dtype, t, done):
+    """The tail kernel alone against ``tail_step_plain`` on one state: row
+    1 finished; at step 3 of 12, at the cap (11: no prenet, the decode
+    done) and past the end (only h_dec copied).  The frame within K1's
+    early limit, the copies and flags exactly, the next prenet (two
+    roundings) within K1's whole-run mel limit."""
+    from chip_smoke import K1_EARLY_TOL, K1_TOL
+
+    (kw, *_), _ = _decode_inputs(cuda_device, dtype, 3, 16, [16, 16, 16])
+    B, S, steps = 3, 21, 12
+    Ha, Hd = kw["att_w"].shape[0] // 4, kw["dec_w"].shape[0] // 4
+    P, n_out = kw["w1"].shape
+    E = kw["pg_w"].shape[1] - Hd
+    g = torch.Generator(device=cuda_device).manual_seed(t)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g, device=cuda_device)
+
+    bufs = [r(B, P + E + Ha), r(B, Ha + E + Hd), torch.cat([torch.tanh(r(B, Hd)), r(B, E)], 1),
+            torch.softmax(r(B, S), 1)]
+    outs = [r(steps, B, n_out), r(steps, B), r(steps, B, S)]
+    flags = torch.zeros(dl.FLAGS, dtype=torch.int32, device=cuda_device)
+    flags[0], flags[1], flags[3] = done, t, 1
+    args = dict(max_steps=steps, gate_threshold=0.5, seed=5, dropout_on=True)
+    got = [x.clone() for x in bufs + [flags] + outs]
+    want = [x.clone() for x in bufs + [flags] + outs]
+    dl.tail_step(kw, *got, **args)
+    dl.tail_step_plain(kw, *want, **args)
+    names = ("xa", "xd", "xp", "wprev", "flags", "mel", "gate", "align")
+    tol = dict(xa=K1_TOL[dtype]["mel"], mel=K1_EARLY_TOL[dtype], gate=K1_EARLY_TOL[dtype])
+    for name, a, b in zip(names, got, want):
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol.get(name, 0.0), (name, err)
+    assert int(got[4][1]) == (t if done else t + 1)
+    assert int(got[4][-1]) == 1
 
 
 @pytest.mark.cuda
@@ -283,7 +450,8 @@ def test_kernels_refuse_an_unknown_dtype_code_on_card(cuda_device, entry):
     if entry == "decode_loop":
         fn = dl._kernel_fn()
         ints = (code, 1, 16, 64, 64, 64, 32, 32, 8, 31, 80)
-        err = fn(*ints, *([null] * 27), 4, ctypes.c_float(0.5), 0, 0, 8, null)
+        counts = (ctypes.c_int * 2)()
+        err = fn(*ints, *([null] * 18), 4, ctypes.c_float(0.5), 0, 0, 1, 1, counts, null)
     else:
         fn = tf._fn(entry, f"t2v_{entry}", 11, 31 if entry == "teacher_fwd" else 45)
         err = fn(code, 3, 1, 16, 64, 64, 32, 32, 8, 31, 0,

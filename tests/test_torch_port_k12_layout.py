@@ -8,7 +8,13 @@ None of that index arithmetic runs on the CPU, where the wrapper takes the
 plain twin, so these tests emulate it in numpy, step for step as the
 kernel does it, and hold it to ``np.fft.rfft``, to the function in float64
 and to the twin: an index error shows here before the card.  They also hold the Python constants to
-the CUDA sources (K2's frames per block and radix; K1's attention cluster).
+the CUDA sources (K2's frames per block and radix; K1's attention and tail
+clusters, its graph cache, the steps of its loop's body and its flags), K1's
+loop to the device (a conditional WHILE node ended by the tail kernel, one
+synchronise a decode), the tail's split of the projection columns and
+prenet outputs over its cluster, and the tail's plain version
+(``tail_step_plain``, what ``tail_step`` runs on CPU tensors): rows that
+have finished, the step cap and a decode that has ended.
 """
 
 import os
@@ -39,9 +45,107 @@ def _constants(source):
     (sm, "FRAMES_PER_BLOCK", "stft_mel.cu", "kFrames"),
     (sm, "RADIX", "stft_mel.cu", "kRadix"),
     (dl, "CLUSTER", "decoder_loop.cu", "kNC"),
-], ids=["K2_frames", "K2_radix", "K1_cluster"])
+    (dl, "TAIL_CLUSTER", "decoder_loop.cu", "kTailNC"),
+    (dl, "GRAPHS", "decoder_loop.cu", "kDecodeGraphs"),
+    (dl, "UNROLL", "decoder_loop.cu", "kUnroll"),
+    (dl, "FLAGS", "decoder_loop.cu", "kFlags"),
+], ids=["K2_frames", "K2_radix", "K1_cluster", "K1_tail_cluster", "K1_graphs", "K1_unroll",
+        "K1_flags"])
 def test_python_constants_match_the_kernel_sources(module, py_name, source, c_name):
     assert getattr(module, py_name) == _constants(source)[c_name]
+
+
+def _code(source):
+    """The source without its comments."""
+    with open(os.path.join(CSRC, source)) as f:
+        return re.sub(r"//[^\n]*", "", f.read())
+
+
+def test_decode_loop_runs_on_the_device():
+    """K1 loops on the device: its step is the body of a conditional WHILE
+    node that the tail kernel ends, and a decode (``run``) synchronises
+    once (after the graph, for the step count), not every few steps."""
+    code = _code("decoder_loop.cu")
+    decode = code[code.index("cudaError_t run(const Args& a"):code.index("cudaError_t run_b(")]
+    assert "cudaGraphCondTypeWhile" in code
+    assert code.count("cudaGraphSetConditional(loop, 0)") == 2  # past the end; at the stop
+    assert decode.count("cudaStreamSynchronize") == 1
+    assert decode.count("cudaGraphLaunch") == 1 == code.count("cudaGraphLaunch")
+    assert "check_every" not in code and not hasattr(dl, "CHECK_EVERY")
+
+
+def tail_split(N, P, nc):
+    """(columns, prenet outputs) of each of the tail's nc CTAs, as the
+    kernel's TailGeo splits them: ceil(N / nc) columns and ceil(P / nc)
+    outputs a CTA, the last ones fewer or none."""
+    Nc, Pc = -(-N // nc), -(-P // nc)
+    return ([range(r * Nc, min(N, (r + 1) * Nc)) for r in range(nc)],
+            [range(r * Pc, min(P, (r + 1) * Pc)) for r in range(nc)])
+
+
+@pytest.mark.parametrize("N,P", [(81, 256), (161, 256), (9, 32), (81, 16), (3, 48)])
+@pytest.mark.parametrize("nc", [4, 8])
+def test_tail_split_covers_each_output_once(N, P, nc):
+    """Every projection column (n_mel r + 1 of them) and prenet output has
+    one owning CTA, and each CTA's prenet range has an even start and
+    length (the kernel's layer 2 takes rows two at a time; P % 16 == 0)."""
+    cols, outs = tail_split(N, P, nc)
+    assert sorted(c for r in cols for c in r) == list(range(N))
+    assert sorted(o for r in outs for o in r) == list(range(P))
+    assert all(r.start % 2 == 0 and len(r) % 2 == 0 for r in outs)
+
+
+@pytest.mark.parametrize("t,done", [(3, 0), (11, 0), (4, 1)], ids=["step", "cap", "ended"])
+def test_tail_step_plain_writes_what_the_step_owns(t, done):
+    """The tail's plain version at TINY widths on one state (B=3, row 1
+    finished, 12 steps): at a step it writes mel, gate and alignments of
+    step t for the other rows only, h_dec into xd, the prenet of step t + 1
+    (its dropout drawn with step t + 1's bits) into xa's first P columns,
+    and advances the flags; at the cap it writes no prenet and ends the
+    decode; past the end it copies h_dec alone.  Every launch is counted."""
+    from _torch_port_common import TINY
+    from tacotron2_vae_torch.config import create_hparams
+    from tacotron2_vae_torch.models.tacotron2 import Tacotron2, init_weights
+
+    dec = init_weights(Tacotron2(create_hparams(TINY)), torch.Generator().manual_seed(0)).decoder
+    kw = dl.pack_weights(dec, torch.bfloat16)
+    B, S, steps = 3, 7, 12
+    Ha, Hd = kw["att_w"].shape[0] // 4, kw["dec_w"].shape[0] // 4
+    P, n_out = kw["w1"].shape
+    E = kw["pg_w"].shape[1] - Hd
+    g = torch.Generator().manual_seed(1)
+    xa, xd, xp = (torch.randn(B, k, generator=g) for k in (P + E + Ha, Ha + E + Hd, Hd + E))
+    wprev = torch.rand(B, S, generator=g)
+    mel, gate, align = (torch.randn(steps, B, *k, generator=g) for k in ((n_out,), (), (S,)))
+    flags = torch.zeros(dl.FLAGS, dtype=torch.int32)
+    flags[0], flags[1], flags[3] = done, t, 1
+    before = [x.clone() for x in (xa, xd, mel, gate, align, flags)]
+    dl.tail_step(kw, xa, xd, xp, wprev, flags, mel, gate, align, max_steps=steps,
+                 gate_threshold=0.9, seed=5, dropout_on=True)
+
+    assert torch.equal(xd[:, Ha + E:], xp[:, :Hd])
+    assert torch.equal(xd[:, :Ha + E], before[1][:, :Ha + E])
+    assert int(flags[-1]) == 1
+    written = torch.zeros(steps, B, dtype=torch.bool)
+    if not done:
+        written[t] = torch.tensor([True, False, True])
+    assert torch.equal(mel != before[2], written[..., None].expand_as(mel))
+    assert torch.equal(gate[~written], before[3][~written])
+    assert torch.equal(align[~written], before[4][~written])
+    if not done:
+        assert torch.equal(align[t, [0, 2]], wprev[[0, 2]])
+    assert torch.equal(xa[:, P:], before[0][:, P:])
+    if t + 1 < steps and not done:
+        kept = dl.dropout_keep(5, t + 1, 1, B, P) > 0
+        assert bool((xa[:, :P][~kept] == 0).all()) and bool((xa[:, :P] != before[0][:, :P]).all())
+    else:
+        assert torch.equal(xa, before[0])
+    want_flags = before[5].clone()
+    want_flags[-1] = 1
+    if not done:
+        want_flags[1] = t + 1
+        want_flags[0] = int(t + 1 == steps)
+    assert torch.equal(flags, want_flags)
 
 
 # ------------------------------------------------------- K2, in numpy
@@ -216,3 +320,22 @@ def test_twiddle_table_is_rounded_once_from_float64():
     assert tab.twiddle.dtype == np.float32 and tab.twiddle.shape == (1024, 2)
     assert np.array_equal(tab.twiddle[:, 0], exact.real.astype(np.float32))
     assert np.array_equal(tab.twiddle[:, 1], exact.imag.astype(np.float32))
+
+
+def test_decode_turns_needs_a_card(monkeypatch):
+    """The turns tool measures the card: without one it stops, and never
+    times the CPU in its place."""
+    from tacotron2_vae_torch.tools import decode_turns
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        decode_turns.main(["--trees", "."])
+
+
+def test_k1_early_probe_needs_a_card(monkeypatch):
+    """The early-step probe reads the card's kernel: without a card it stops."""
+    from tacotron2_vae_torch.tools import k1_early_probe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        k1_early_probe.main(["--trees", "."])
