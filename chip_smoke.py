@@ -336,25 +336,47 @@ def k1_graph_reuse(dec, device):
     """Repeated K1 calls at one new shape, each on new memory: graphs
     instantiated (must be 1, by the first call), the persisting-L2 limit
     before and after (must match), and the first call's outputs unchanged
-    by the later calls (no buffer shared across calls)."""
+    by the later calls (no buffer shared across calls).  The calls run
+    under ``utils.profiling``, each in a span: the first call's graph build
+    time must be above 0 and the others' 0, their sum the counter's and
+    the change of ``info()["instantiate_ns"]``, and each call's placed
+    device interval (its CUDA events) must lie inside its span."""
     import torch
     from tacotron2_vae_torch.ops import decoder_loop as dl
+    from tacotron2_vae_torch.utils import profiling
 
     B, S, steps, calls = K1_REUSE
     kw = dl.pack_weights(dec, torch.float32)  # the dtype whose decode sets L2 aside
     args = dict(max_steps=steps, gate_threshold=1.0, seed=7, dropout_on=True)
     before = dl.info()
-    outs = [dl.decode_loop(kw, *k1_inputs(dec, B, S, device, i), None, **args)
-            for i in range(calls)]
+    profiling.start()
+    outs = []
+    for i in range(calls):
+        with profiling.span("k1"):
+            outs.append(dl.decode_loop(kw, *k1_inputs(dec, B, S, device, i), None, **args))
+    rec = profiling.stop()
     first = dl.decode_loop(kw, *k1_inputs(dec, B, S, device, 0), None, **args)
     after = dl.info()
+    spans = [d for d in rec["spans"] if d["name"] == "k1"]
+    built = [d["k1_instantiate_ns"] for d in spans]
+    slack = 1e-3    # the anchor event runs a few microseconds after its host time
     row = {"kernel": "K1", "check": "graph_reuse", "B": B, "S": S, "steps": steps,
            "calls": calls + 1, "graphs_instantiated": after["graphs_instantiated"]
            - before["graphs_instantiated"], "persisting_l2_limit": [
                before["persisting_l2_limit"], after["persisting_l2_limit"]],
            "windowed_lstm_nodes": after["windowed_lstm_nodes"],
-           "first_call_kept": all(torch.equal(a, b) for a, b in zip(outs[0], first))}
+           "first_call_kept": all(torch.equal(a, b) for a, b in zip(outs[0], first)),
+           "instantiate_ns": built, "counter_ns": rec["counters"].get("k1.instantiate_ns"),
+           "device_ms": [d["device_ms"] for d in spans],
+           "device_in_span_ms": [[(d["device"][0] - d["start"]) * 1e3,
+                                  (d["end"] - d["device"][1]) * 1e3] for d in spans]}
     row["fails"] = [k for k, ok in (
+        ("instantiate_ns", len(built) == calls and built[0] > 0 and not any(built[1:])
+         and sum(built) == row["counter_ns"]
+         == after["instantiate_ns"] - before["instantiate_ns"]),
+        ("device_ms", all(v > 0 for v in row["device_ms"])),
+        ("device_in_span", all(d["start"] - slack <= d["device"][0] <= d["device"][1]
+                               <= d["end"] + slack for d in spans)),
         ("graphs_instantiated", row["graphs_instantiated"] == 1),
         ("persisting_l2_limit", before["persisting_l2_limit"] == after["persisting_l2_limit"]),
         ("windowed_lstm_nodes",
@@ -1146,6 +1168,7 @@ def steady_steps(hp, device):
     torch.cuda.reset_peak_memory_stats()
     tf.teacher_fwd.launches = tf.teacher_bwd.launches = 0
     captures, updates = tf.graph_captures(), tf.graph_updates()
+    build_ms = tf.graph_instantiate_ms()
     n_steps = TRAIN_STEPS + 1 + PIPELINED + 1
     metrics = []
 
@@ -1177,6 +1200,7 @@ def steady_steps(hp, device):
     launches = {"K3": tf.teacher_fwd.launches, "K4": tf.teacher_bwd.launches}
     captures = {k: v - captures[k] for k, v in tf.graph_captures().items()}
     updates = {k: v - updates[k] for k, v in tf.graph_updates().items()}
+    build_ms = {k: v - build_ms[k] for k, v in tf.graph_instantiate_ms().items()}
     B, S, T = TRAIN_SHAPE
     ms = sum(times[1:]) / TRAIN_STEPS
     row = {"phase": "train_steady", "B": B, "S": S, "T": T, "steps": TRAIN_STEPS,
@@ -1187,8 +1211,12 @@ def steady_steps(hp, device):
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "loss": [m[0] for m in metrics], "grad_norm": [m[1] for m in metrics],
            "sync_debug_step": "no host sync", "launches": launches,
-           "graph_captures": captures, "graph_updates": updates}
+           "graph_captures": captures, "graph_updates": updates,
+           "graph_instantiate_ms": build_ms}
     print(json.dumps(row), flush=True)
+    if any((captures[k] + updates[k] > 0) != (build_ms[k] > 0) for k in captures):
+        raise AssertionError(f"K3/K4 graph build time {build_ms} against builds "
+                             f"{captures} {updates}")
     losses = row["loss"]
     if not all(math.isfinite(v) for v in losses + row["grad_norm"]):
         raise AssertionError(f"non-finite loss or grad norm: {losses} {row['grad_norm']}")

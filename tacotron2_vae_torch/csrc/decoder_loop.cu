@@ -125,6 +125,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <chrono>
 #include <mutex>
 #include <vector>
 
@@ -1068,6 +1069,7 @@ struct Args {
   float thr;
   uint32_t seed;
   cudaStream_t stream;
+  cudaEvent_t ev_start, ev_end;  // recorded around the head and the loop when not null
 };
 
 // Byte offsets of an entry's arena: the recurrent state (floats, back to
@@ -1139,6 +1141,7 @@ struct Cache {
   std::mutex mu;                 // held for a whole decode: the arena, this cache, the L2 limit
   std::vector<Entry> entries;    // most recent first
   long long captures = 0;        // graphs instantiated so far
+  long long instantiate_ns = 0;  // host time spent capturing and instantiating them
   long long windowed = 0;        // LSTM kernel nodes carrying their window, last graph built
   L2Plan l2;                     // the last decode's set-aside and hitRatio
 };
@@ -1344,7 +1347,12 @@ cudaError_t run(const Args& a, int* counts) {
                                (size_t)a.Hd * (a.Ha + a.E + a.Hd));
     if ((err = l2_plan(lstm_bytes, &e.l2)) != cudaSuccess) return err;
     if ((err = cudaMalloc(&e.arena, L.bytes)) != cudaSuccess) return err;
-    if ((err = build<T, B>(a, e, &C.windowed)) != cudaSuccess) {
+    const auto t0 = std::chrono::steady_clock::now();
+    err = build<T, B>(a, e, &C.windowed);
+    C.instantiate_ns += std::chrono::duration_cast<std::chrono::nanoseconds>(
+                            std::chrono::steady_clock::now() - t0)
+                            .count();
+    if (err != cudaSuccess) {
       cudaFree(e.arena);
       return err;
     }
@@ -1384,14 +1392,18 @@ cudaError_t run(const Args& a, int* counts) {
       return err;
     C.l2 = e.l2;
   }
-  head_kernel<<<kHeadBlocks, kThreads, 0, a.stream>>>(h);
-  err = cudaGetLastError();
+  if (a.ev_start) err = cudaEventRecord(a.ev_start, a.stream);
+  if (err == cudaSuccess) {
+    head_kernel<<<kHeadBlocks, kThreads, 0, a.stream>>>(h);
+    err = cudaGetLastError();
+  }
   if (a.use_graph) {
     if (err == cudaSuccess) err = cudaGraphLaunch(e.exec, a.stream);
   } else {  // every step's kernels on the stream (past the end they return at once)
     for (int i = 0; err == cudaSuccess && i < a.max_steps; ++i)
       err = enqueue_step<T, B>(a, e, a.stream, 0, 0);
   }
+  if (err == cudaSuccess && a.ev_end) err = cudaEventRecord(a.ev_end, a.stream);
   int fl[kFlags] = {};
   if (err == cudaSuccess)
     err = cudaMemcpyAsync(fl, h.flags, sizeof(fl), cudaMemcpyDeviceToHost, a.stream);
@@ -1475,7 +1487,9 @@ cudaError_t tail_b(int B, const TailDims& td, const void* w1, const void* w2, co
 //   scopes the set-aside to the call; use_graph: 1 runs the step loop as
 //   the cached graph, 0 launches every step's kernels on the stream
 //   (max_steps steps; for the profiler, which does not see the launches of
-//   a conditional node's body one by one).
+//   a conditional node's body one by one).  ev_start, ev_end: CUDA events
+//   (cudaEvent_t) recorded on the stream right before the head kernel and
+//   right after the step loop, so after any graph build; null records nothing.
 // Synchronises the stream before it returns.  Returns a cudaError_t (0 on
 // success).
 extern "C" int t2v_decode_loop(
@@ -1486,7 +1500,7 @@ extern "C" int t2v_decode_loop(
     const void* mem, const void* pmem, const float* addmask,
     float* mel_out, float* gate_out, float* align_out,
     int max_steps, float thr, unsigned int seed, int dropout_on, int l2_window, int use_graph,
-    int* counts, void* stream) {
+    int* counts, void* stream, void* ev_start, void* ev_end) {
   if (B < 1 || B > 8 || A % 32 != 0 || A % (4 * kNC) != 0 || kThreads % A != 0 ||
       F > kMaxF || F % 4 != 0 || P % 16 != 0 || E > 4 * kNC * kThreads || counts == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -1495,7 +1509,8 @@ extern "C" int t2v_decode_loop(
          att_b, dec_b, pg_b, addmask,
          mel_out, gate_out, align_out,
          max_steps, dropout_on, thr, seed,
-         static_cast<cudaStream_t>(stream)};
+         static_cast<cudaStream_t>(stream), static_cast<cudaEvent_t>(ev_start),
+         static_cast<cudaEvent_t>(ev_end)};
   std::lock_guard<std::mutex> lock(cache().mu);
   switch (dtype) {
     case 0: return (int)run_b<float>(a, counts);
@@ -1539,7 +1554,8 @@ extern "C" int t2v_tail_step(int dtype, int B, int S, int E, int Ha, int Hd, int
 // bytes; its largest access-policy window; the persisting-L2 limit now;
 // LSTM kernel nodes carrying their window in the last graph built; the last
 // decode's set-aside; its hitRatio x 1e6; the CUDA runtime's and the
-// driver's versions.  Returns a cudaError_t.
+// driver's versions; the host nanoseconds spent capturing and instantiating
+// graphs so far.  Returns a cudaError_t.
 extern "C" int t2v_decode_info(long long* out, int n) {
   Cache& C = cache();
   std::lock_guard<std::mutex> lock(C.mu);
@@ -1553,8 +1569,9 @@ extern "C" int t2v_decode_info(long long* out, int n) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&maxw, cudaDevAttrMaxAccessPolicyWindowSize, dev);
   if (err == cudaSuccess) err = cudaDeviceGetLimit(&limit, cudaLimitPersistingL2CacheSize);
-  const long long v[9] = {C.captures, maxp, maxw, (long long)limit, C.windowed,
-                          (long long)C.l2.setaside, (long long)(C.l2.hit * 1e6), runtime, driver};
-  for (int i = 0; i < n && i < 9; ++i) out[i] = v[i];
+  const long long v[10] = {C.captures, maxp, maxw, (long long)limit, C.windowed,
+                           (long long)C.l2.setaside, (long long)(C.l2.hit * 1e6), runtime, driver,
+                           C.instantiate_ns};
+  for (int i = 0; i < n && i < 10; ++i) out[i] = v[i];
   return (int)err;
 }

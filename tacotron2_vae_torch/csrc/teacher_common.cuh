@@ -26,6 +26,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <chrono>
 #include <mutex>
 #include <type_traits>
 #include <utility>
@@ -476,6 +477,7 @@ struct GraphCache {
   std::vector<GraphEntry> entries;
   int captures = 0;  // graphs instantiated so far (a replay or an update adds none)
   int updates = 0;   // graphs given new pointers in place (cudaGraphExecUpdate)
+  long long build_ns = 0;  // host time of both: capture plus instantiation or update
 };
 
 inline void key_push(GraphKey& k, const void* p) {
@@ -530,6 +532,12 @@ cudaError_t launch_loop(F&& enqueue, bool graph, GraphCache& cache, const GraphK
     std::rotate(es.begin(), it, it + 1);
     if (es.front().key.ptrs == key.ptrs) return cudaGraphLaunch(es.front().exec, st);
   }
+  const auto t0 = std::chrono::steady_clock::now();
+  const auto built = [&] {
+    cache.build_ns += std::chrono::duration_cast<std::chrono::nanoseconds>(
+                          std::chrono::steady_clock::now() - t0)
+                          .count();
+  };
   cudaGraph_t g = nullptr;
   cudaError_t err = capture(enqueue, &g);
   if (err == cudaSuccess && seen) {
@@ -539,6 +547,7 @@ cudaError_t launch_loop(F&& enqueue, bool graph, GraphCache& cache, const GraphK
       cudaGraphDestroy(g);
       es.front().key.ptrs = key.ptrs;
       ++cache.updates;
+      built();
       return cudaGraphLaunch(es.front().exec, st);
     }
     cudaGetLastError();  // the topology changed: instantiate anew below
@@ -548,6 +557,7 @@ cudaError_t launch_loop(F&& enqueue, bool graph, GraphCache& cache, const GraphK
   cudaGraphExec_t exec = nullptr;
   if (err == cudaSuccess) err = cudaGraphInstantiate(&exec, g, 0);
   if (g) cudaGraphDestroy(g);
+  built();
   if (err != cudaSuccess) {
     if (exec) cudaGraphExecDestroy(exec);
     return err;

@@ -578,3 +578,10 @@ extern "C" int t2v_teacher_fwd_graph_updates() {
   std::lock_guard<std::mutex> lock(graphs.mu);
   return graphs.updates;
 }
+
+// Host nanoseconds t2v_teacher_fwd has spent building graphs so far:
+// capturing the loop, then instantiating it or updating one in place.
+extern "C" long long t2v_teacher_fwd_graph_build_ns() {
+  std::lock_guard<std::mutex> lock(graphs.mu);
+  return graphs.build_ns;
+}

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from ..ops.layers import LinearNorm, col_embedding, embedding
+from ..utils import profiling
 from .decoder import Decoder
 from .encoder import Encoder
 from .postnet import Postnet
@@ -101,28 +102,32 @@ class Tacotron2(nn.Module):
         hp = self.hp
         dtype = compute_dtype(hp)
         text, lengths, mel = batch["text"], batch["input_lengths"], batch["mel"]
-        embedded = col_embedding(self.transcript_embedding.weight, text)
-        transcript = self.encoder(embedded, lengths, dtype=dtype, train=train,
-                                  generator=generator)
-        prosody, mu, logvar, z = self.vae_gst(
-            mel, dtype=dtype, raw_reshape=getattr(hp, "ref_enc_raw_reshape", False),
-            train=train, generator=generator)
-        memory = transcript + prosody[:, None, :]
+        with profiling.span("fwd.encoder"):
+            embedded = col_embedding(self.transcript_embedding.weight, text)
+            transcript = self.encoder(embedded, lengths, dtype=dtype, train=train,
+                                      generator=generator)
+        with profiling.span("fwd.vae"):
+            prosody, mu, logvar, z = self.vae_gst(
+                mel, dtype=dtype, raw_reshape=getattr(hp, "ref_enc_raw_reshape", False),
+                train=train, generator=generator)
         B, S = text.shape
-        if hp.use_custom_bptt:
-            mel_out, gate_out, align = decoder_bptt.teacher_forced(
-                self.decoder, memory, mel, lengths, hp, train=train, generator=generator,
-                dtype=scan_dtype(hp, B, S, memory.is_cuda),
-                prenet_dropout_enabled=prenet_dropout_enabled)
-        else:
-            mel_out, gate_out, align = self.decoder.teacher_forced(
-                memory, mel, lengths, train=train, generator=generator, dtype=dtype,
-                prenet_dropout_enabled=prenet_dropout_enabled)
-        mel_post = mel_out + self.postnet(mel_out, dtype=dtype, train=train,
-                                          generator=generator)
-        if hp.mask_padding:
-            mel_out, mel_post, gate_out = _mask_outputs(mel_out, mel_post, gate_out,
-                                                        batch.get("output_lengths"))
+        with profiling.span("fwd.decoder"):
+            memory = transcript + prosody[:, None, :]
+            if hp.use_custom_bptt:
+                mel_out, gate_out, align = decoder_bptt.teacher_forced(
+                    self.decoder, memory, mel, lengths, hp, train=train, generator=generator,
+                    dtype=scan_dtype(hp, B, S, memory.is_cuda),
+                    prenet_dropout_enabled=prenet_dropout_enabled)
+            else:
+                mel_out, gate_out, align = self.decoder.teacher_forced(
+                    memory, mel, lengths, train=train, generator=generator, dtype=dtype,
+                    prenet_dropout_enabled=prenet_dropout_enabled)
+        with profiling.span("fwd.postnet"):
+            mel_post = mel_out + self.postnet(mel_out, dtype=dtype, train=train,
+                                              generator=generator)
+            if hp.mask_padding:
+                mel_out, mel_post, gate_out = _mask_outputs(mel_out, mel_post, gate_out,
+                                                            batch.get("output_lengths"))
         emotions = batch.get("emotions")
         if emotions is None:
             emotions = mel.new_zeros(B, 0)
@@ -136,18 +141,22 @@ class Tacotron2(nn.Module):
         attention over bucket padding."""
         hp = self.hp
         dtype = compute_dtype(hp)
-        embedded = embedding(self.transcript_embedding.weight, text)
-        transcript = self.encoder(embedded, text_lengths, dtype=dtype,
-                                  mask_conv_inputs=True)
-        if style_embed.ndim == 1:
-            style_embed = style_embed[None]
-        memory = transcript + style_embed[:, None, :].float()
-        mel, gate, align, lengths = self.decoder.infer(
-            memory, seed=seed, max_steps=max_steps, gate_threshold=gate_threshold,
-            dtype=dtype, prenet_dropout_enabled=prenet_dropout_enabled,
-            memory_lengths=text_lengths)
-        residual = self.postnet(mel, dtype=dtype)
-        return mel, mel + residual, gate, align, lengths
+        with profiling.span("mel.encoder"):
+            embedded = embedding(self.transcript_embedding.weight, text)
+            transcript = self.encoder(embedded, text_lengths, dtype=dtype,
+                                      mask_conv_inputs=True)
+            if style_embed.ndim == 1:
+                style_embed = style_embed[None]
+            memory = transcript + style_embed[:, None, :].float()
+        with profiling.span("mel.decode"):
+            mel, gate, align, lengths = self.decoder.infer(
+                memory, seed=seed, max_steps=max_steps, gate_threshold=gate_threshold,
+                dtype=dtype, prenet_dropout_enabled=prenet_dropout_enabled,
+                memory_lengths=text_lengths)
+        with profiling.span("mel.postnet"):
+            residual = self.postnet(mel, dtype=dtype)
+            mel_post = mel + residual
+        return mel, mel_post, gate, align, lengths
 
 
 _GAINS = {"linear": 1.0, "relu": math.sqrt(2.0), "tanh": 5.0 / 3.0, "sigmoid": 1.0}

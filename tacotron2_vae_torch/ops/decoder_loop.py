@@ -10,7 +10,11 @@ calls); on a CPU tensor it runs ``decode_loop_plain``, the same loop in
 PyTorch on the same packed weights, with the kernel's casting points and
 its dropout hash.  It counts its calls of the kernel in
 ``decode_loop.launches`` and the launches of its tail kernel, which the
-kernel counts on the device, in ``decode_loop.tail_launches``.
+kernel counts on the device, in ``decode_loop.tail_launches``.  While
+``utils.profiling`` records, each kernel call hands the enclosing span a
+pair of CUDA events recorded around the head kernel and the graph's loop,
+after any graph build (``device_events``), and the host time of its graph
+build (``k1_instantiate_ns``, also summed in that counter).
 ``tail_step`` runs the tail kernel alone, once (``tail_step_plain`` on the
 CPU), to hold it against its plain version.
 
@@ -27,6 +31,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import _build
 
 MAX_ROWS = 8          # rows one launch serves (the serving micro-batch cap)
@@ -277,13 +282,14 @@ def _kernel_fn():
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] * 11 + [ctypes.c_void_p] * 18
                    + [ctypes.c_int, ctypes.c_float, ctypes.c_uint, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_void_p])
     return fn
 
 
 INFO = ("graphs_instantiated", "max_persisting_l2_bytes", "max_window_bytes",
         "persisting_l2_limit", "windowed_lstm_nodes", "l2_setaside_bytes", "hit_ratio",
-        "cuda_runtime", "cuda_driver")
+        "cuda_runtime", "cuda_driver", "instantiate_ns")
 
 
 def info() -> dict:
@@ -292,8 +298,9 @@ def info() -> dict:
     last ``GRAPHS``), the card's largest persisting-L2 set-aside and access
     window, the persisting-L2 limit now (the decode restores it), the LSTM
     graph nodes that carry their window in the last graph built, the last
-    decode's set-aside and hitRatio, and the CUDA runtime's and driver's
-    versions (conditional graph nodes need 12.3 or later)."""
+    decode's set-aside and hitRatio, the CUDA runtime's and driver's
+    versions (conditional graph nodes need 12.3 or later), and the host
+    nanoseconds spent capturing and instantiating graphs so far."""
     fn = _build.load("decoder_loop").t2v_decode_info
     fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_void_p, ctypes.c_int]
     out = (ctypes.c_longlong * len(INFO))()
@@ -359,14 +366,25 @@ def _run_kernel(kw, memory, pmem, mask, *, max_steps, gate_threshold, seed,
     mel_buf, gate_buf, align_buf = z(max_steps, B, n_out), z(max_steps, B), z(max_steps, B, S)
     counts = (ctypes.c_int * 2)()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    events, null = None, ctypes.c_void_p(0)
+    if profiling.recording():
+        built = info()["instantiate_ns"]
+        events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        for ev in events:   # creates the event, which the kernel's call records again
+            ev.record()
     err = _kernel_fn()(
         DTYPES[dt], B, S, E, Ha, Hd, P, A, F, KL, n_out,
         *(_ptr(kw[k]) for k in ("w1", "w2", "att_w", "att_b", "dec_w", "dec_b",
                                 "wq", "locw", "ldw", "v", "pg_w", "pg_b")),
         _ptr(mem), _ptr(pm), _ptr(add), _ptr(mel_buf), _ptr(gate_buf), _ptr(align_buf),
         max_steps, float(gate_threshold), seed & _M32, int(bool(dropout_on)),
-        int(l2_window(kw)), int(bool(USE_GRAPH)), counts, ctypes.c_void_p(stream))
+        int(l2_window(kw)), int(bool(USE_GRAPH)), counts, ctypes.c_void_p(stream),
+        *((ctypes.c_void_p(ev.cuda_event) for ev in events) if events else (null, null)))
     _build.check(err, "t2v_decode_loop")
+    if events:
+        built = info()["instantiate_ns"] - built
+        profiling.count("k1.instantiate_ns", built)
+        profiling.annotate(device_events=events, k1_instantiate_ns=built)
     decode_loop.launches += 1
     decode_loop.tail_launches += counts[1]
     return mel_buf, gate_buf, align_buf, counts[0]

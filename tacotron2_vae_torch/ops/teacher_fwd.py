@@ -33,6 +33,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
 from . import _build
 from .layers import no_tf32
 
@@ -388,6 +389,31 @@ def graph_updates() -> dict:
     return _graph_counter("updates")
 
 
+def _build_ns(lib: str) -> int:
+    fn = getattr(_build.load(lib), f"t2v_{lib}_graph_build_ns")
+    fn.restype, fn.argtypes = ctypes.c_longlong, []
+    return fn()
+
+
+def graph_instantiate_ms() -> dict:
+    """Host milliseconds K3 and K4 have spent so far building their
+    step-loop graphs: capturing the loop, then instantiating it or updating
+    a graph in place (two clock reads a build in the C code)."""
+    return {key: _build_ns(lib) / 1e6 for key, lib in (("K3", "teacher_fwd"),
+                                                        ("K4", "teacher_bwd"))}
+
+
+def _counted(lib: str, run, *args):
+    """``run(*args)``; while ``utils.profiling`` records, the graph build
+    time of the call is added to the counter ``<lib>.instantiate_ns``."""
+    if not profiling.recording():
+        return run(*args)
+    ns = _build_ns(lib)
+    out = run(*args)
+    profiling.count(f"{lib}.instantiate_ns", _build_ns(lib) - ns)
+    return out
+
+
 def teacher_fwd(w, prenet_seq, memory, pmem, add_mask, masks=None):
     """Forward recurrence (K3 on CUDA, the twin on the CPU).
 
@@ -395,7 +421,7 @@ def teacher_fwd(w, prenet_seq, memory, pmem, add_mask, masks=None):
     (B, S, A), add_mask (B, S) float32; masks None (dropout off) or four
     pre-scaled (T, B, H) masks in the stream dtype."""
     if memory.is_cuda:
-        return _run_fwd(w, prenet_seq, memory, pmem, add_mask, masks)
+        return _counted("teacher_fwd", _run_fwd, w, prenet_seq, memory, pmem, add_mask, masks)
     if memory.device.type != "cpu":
         raise ValueError(f"teacher_fwd runs on CUDA or CPU, not {memory.device}")
     return teacher_fwd_plain(w, prenet_seq, memory, pmem, add_mask, masks)
@@ -405,7 +431,8 @@ def teacher_bwd(w, memory, pmem, masks, dys, ys, resids, w_cum_prev):
     """Reverse-time BPTT (K4 on CUDA, the twin on the CPU); see the module
     docstring for the returned streams and accumulators."""
     if memory.is_cuda:
-        return _run_bwd(w, memory, pmem, masks, dys, ys, resids, w_cum_prev)
+        return _counted("teacher_bwd", _run_bwd, w, memory, pmem, masks, dys, ys, resids,
+                        w_cum_prev)
     if memory.device.type != "cpu":
         raise ValueError(f"teacher_bwd runs on CUDA or CPU, not {memory.device}")
     return teacher_bwd_plain(w, memory, pmem, masks, dys, ys, resids, w_cum_prev)

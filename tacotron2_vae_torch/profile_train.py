@@ -35,7 +35,7 @@ then one run with iterations ``warm .. warm + 4`` under
 ``utils.profiling.trace`` with the card's activity alone (its busy ms per
 iteration, its busy share of those iterations and the longest idle gaps;
 the gzipped Chrome trace goes to ``chiprun_out/``).  The busy share of the
-untraced run is the traced busy ms per iteration over its s/it.  Under
+traced iterations is the only one it reports.  Under
 ``torchrun --nproc_per_node=N`` every rank runs it on its shard (a global
 batch of 64) and prints its own line.
 """
@@ -270,8 +270,7 @@ def profile_loop(iters=16, warm=3):
         timed = loop_run(hp, "cuda", os.path.join(tmp, "out"), warm=warm)
         traced = loop_run(hp, "cuda", os.path.join(tmp, "out"), warm=warm, traced=5,
                           trace_dir=out_dir)
-    return {"timed": timed, "traced": traced,
-            "busy_share": traced["device_ms_per_it"] / (timed["s_per_it"] * 1e3)}
+    return {"timed": timed, "traced": traced}
 
 
 def main():

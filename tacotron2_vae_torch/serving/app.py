@@ -14,6 +14,13 @@ to ``--max_batch`` requests at a time and runs one batched synthesis
 for the batch on the card), then vocodes each item.  The wav cache key
 hashes the text and the style parameters.
 
+While ``utils.profiling`` records, each ``/generate`` or ``/api`` request
+is an ``http`` span with a request id (``rid``), its handler's wait in
+``MicroBatcher.submit`` is ``http.submit``, and the worker records each
+request's ``batcher.queue`` (from its enqueue to the start of its batch),
+its own waits (``batcher.idle`` with nothing queued, ``batcher.window``
+for companions) and each ``batch`` with the ``rids`` it serves.
+
 Unlike the JAX module, importing this one builds no ``Synthesizer``: that
 needs a card, so ``main`` builds it (``synthesizer`` stays None until then;
 tests set it).
@@ -30,10 +37,12 @@ import hashlib
 import json
 import os
 import threading
+import time
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
+from ..utils import profiling
 from .synthesizer import Synthesizer
 
 ROOT_PATH = "web"
@@ -65,11 +74,13 @@ class MicroBatcher:
         self._worker.start()
 
     def submit(self, request):
-        item = {"req": request, "done": threading.Event(), "result": None, "error": None}
-        with self._cv:
-            self._queue.append(item)
-            self._cv.notify()
-        item["done"].wait()
+        item = {"req": request, "done": threading.Event(), "result": None, "error": None,
+                "rid": profiling.current_rid(), "t": time.perf_counter()}
+        with profiling.span("http.submit"):
+            with self._cv:
+                self._queue.append(item)
+                self._cv.notify()
+            item["done"].wait()
         if item["error"] is not None:
             raise item["error"]
         return item["result"]
@@ -78,19 +89,29 @@ class MicroBatcher:
         concurrent = False  # did the previous drain see companion traffic?
         while True:
             with self._cv:
-                while not self._queue:
-                    self._cv.wait()
+                if not self._queue:
+                    with profiling.span("batcher.idle"):
+                        while not self._queue:
+                            self._cv.wait()
                 if (self.window_s > 0 and self.max_batch > 1
                         and len(self._queue) < self.max_batch
                         and (concurrent or len(self._queue) > 1)):
                     # let companions arrive; wake early once the batch fills
-                    self._cv.wait_for(lambda: len(self._queue) >= self.max_batch,
-                                      timeout=self.window_s)
+                    with profiling.span("batcher.window"):
+                        self._cv.wait_for(lambda: len(self._queue) >= self.max_batch,
+                                          timeout=self.window_s)
                 batch = self._queue[:self.max_batch]
                 del self._queue[:len(batch)]
                 concurrent = len(batch) > 1 or bool(self._queue)
+            rids = None
+            if profiling.recording():
+                t = time.perf_counter()
+                for it in batch:
+                    profiling.add("batcher.queue", it["t"], t, rid=it["rid"])
+                rids = [it["rid"] for it in batch]
             try:
-                results = self.run_batch([it["req"] for it in batch])
+                with profiling.span("batch", rids=rids):
+                    results = self.run_batch([it["req"] for it in batch])
                 for it, res in zip(batch, results):
                     it["result"] = res
             except Exception as e:  # noqa: BLE001 - propagate to callers
@@ -164,21 +185,8 @@ class Handler(BaseHTTPRequestHandler):
             return self._send(200, page.encode("utf-8"), "text/html; charset=utf-8")
 
         if route == "/generate":
-            text = q.get("text")
-            if not text:
-                return self._send(200, b"{}")
-            try:
-                if q.get("con") == "true":
-                    path = _synthesize(text, True, q.get("ref"), None)
-                else:
-                    ratios = _normalize_ratios(
-                        float(q.get("n", 1)), float(q.get("s", 0)),
-                        float(q.get("h", 0)), float(q.get("a", 0)))
-                    path = _synthesize(text, False, None, ratios)
-            except Exception:  # noqa: BLE001 - the client gets a 400
-                traceback.print_exc()
-                return self._send(400, b'{"success": false}')
-            return self._send_file(path, "audio/wav")
+            with profiling.span("http", rid=profiling.next_rid()):
+                return self._generate(q)
 
         for prefix, base, sub in (
             ("/js/", _WEB, "static/js"), ("/css/", _WEB, "static/css"),
@@ -196,9 +204,30 @@ class Handler(BaseHTTPRequestHandler):
 
         self._send(404, b'{"success": false}')
 
+    def _generate(self, q):
+        text = q.get("text")
+        if not text:
+            return self._send(200, b"{}")
+        try:
+            if q.get("con") == "true":
+                path = _synthesize(text, True, q.get("ref"), None)
+            else:
+                ratios = _normalize_ratios(
+                    float(q.get("n", 1)), float(q.get("s", 0)),
+                    float(q.get("h", 0)), float(q.get("a", 0)))
+                path = _synthesize(text, False, None, ratios)
+        except Exception:  # noqa: BLE001 - the client gets a 400
+            traceback.print_exc()
+            return self._send(400, b'{"success": false}')
+        return self._send_file(path, "audio/wav")
+
     def do_POST(self):  # noqa: N802
         if urlparse(self.path).path != "/api":
             return self._send(404, b'{"success": false}')
+        with profiling.span("http", rid=profiling.next_rid()):
+            self._api()
+
+    def _api(self):
         length = int(self.headers.get("Content-Length", 0))
         try:
             args = json.loads(self.rfile.read(length))

@@ -17,6 +17,12 @@ the postnet mel (``vocode_prepostnet=True`` for the reference's
 pre-postnet mel).  ``vocoder_dtype = torch.bfloat16`` runs WaveGlow's
 WaveNet convolutions in bf16 (float32 by default, as the JAX package).
 
+While ``utils.profiling`` records, a batch's work is in spans:
+``batch.styles`` (each reference clip's ``style.ref``: wav read, K2, VAE),
+``mel`` (``mel.text``, then ``Tacotron2.infer``'s ``mel.encoder``,
+``mel.decode`` and ``mel.postnet``, then ``mel.fetch``, the copies to the
+host), and per item ``vocode`` and ``wav.write``, each with its request id.
+
     python -m tacotron2_vae_torch.serving.synthesizer --load_path ckpt.pt \\
         --text "..." [--ref_audio ref.wav | --ratios 1,0,0,0]
 """
@@ -41,6 +47,7 @@ from ..models.tacotron2 import Tacotron2, compute_dtype
 from ..models.waveglow import WaveGlow, WaveGlowConfig
 from ..ops.layers import linear, set_cudnn_flags
 from ..text import text_to_sequence
+from ..utils import profiling
 
 
 class Synthesizer:
@@ -249,29 +256,36 @@ class Synthesizer:
         Texts pad to one bucketed length (masks make the padding exact) and
         the batch pads to the next of {1, 2, 4, 8} rows with length-1
         dummies; on the card one launch of kernel K1 decodes the batch."""
+        with profiling.span("mel"):
+            return self._mel_batch(texts, styles)
+
+    def _mel_batch(self, texts, styles):
         hp = self.hparams
-        seqs = [self._ids(t) for t in texts]
-        B = len(seqs)
-        bucket = max(hp.text_bucket_size, 1)
-        S = -(-max(len(s) for s in seqs) // bucket) * bucket
-        Bp = 1
-        while Bp < B:
-            Bp *= 2
-        buf = np.zeros((Bp, S), np.int64)
-        lens = np.ones((Bp,), np.int64)
-        for i, s in enumerate(seqs):
-            buf[i, :len(s)] = s
-            lens[i] = len(s)
-        style_mat = torch.zeros((Bp, hp.E), dtype=torch.float32, device=self.device)
-        for i, s in enumerate(styles):
-            style_mat[i] = torch.as_tensor(s, dtype=torch.float32, device=self.device)
+        with profiling.span("mel.text"):
+            seqs = [self._ids(t) for t in texts]
+            B = len(seqs)
+            bucket = max(hp.text_bucket_size, 1)
+            S = -(-max(len(s) for s in seqs) // bucket) * bucket
+            Bp = 1
+            while Bp < B:
+                Bp *= 2
+            buf = np.zeros((Bp, S), np.int64)
+            lens = np.ones((Bp,), np.int64)
+            for i, s in enumerate(seqs):
+                buf[i, :len(s)] = s
+                lens[i] = len(s)
+            style_mat = torch.zeros((Bp, hp.E), dtype=torch.float32, device=self.device)
+            for i, s in enumerate(styles):
+                style_mat[i] = torch.as_tensor(s, dtype=torch.float32, device=self.device)
+            text = torch.from_numpy(buf).to(self.device)
+            text_lengths = torch.from_numpy(lens).to(self.device)
         mel, mel_post, gate, align, lengths = self.model.infer(
-            torch.from_numpy(buf).to(self.device), style_mat, seed=self._seed(),
-            max_steps=hp.max_decoder_steps,
-            text_lengths=torch.from_numpy(lens).to(self.device))
-        mel, mel_post = mel.cpu().numpy(), mel_post.cpu().numpy()
-        gate, align = gate.cpu().numpy(), align.cpu().numpy()
-        lengths = lengths.cpu().numpy()
+            text, style_mat, seed=self._seed(), max_steps=hp.max_decoder_steps,
+            text_lengths=text_lengths)
+        with profiling.span("mel.fetch"):
+            mel, mel_post = mel.cpu().numpy(), mel_post.cpu().numpy()
+            gate, align = gate.cpu().numpy(), align.cpu().numpy()
+            lengths = lengths.cpu().numpy()
         r = hp.n_frames_per_step
         out = []
         for i in range(B):
@@ -284,13 +298,21 @@ class Synthesizer:
     def synthesize_batch(self, requests, vocode_prepostnet: bool = False):
         """(text, path, condition_on_ref, ref_audio, ratios) requests -> the
         written wav paths: one batched mel synthesis, per-item vocoding."""
-        styles = [self.style_from_ref(ref) if cond
-                  else self.style_from_ratios(ratios or [1.0, 0.0, 0.0, 0.0])
-                  for _text, _path, cond, ref, ratios in requests]
+        rids = profiling.current_rids() or [None] * len(requests)
+        styles = []
+        with profiling.span("batch.styles"):
+            for (_text, _path, cond, ref, ratios), rid in zip(requests, rids):
+                if not cond:
+                    styles.append(self.style_from_ratios(ratios or [1.0, 0.0, 0.0, 0.0]))
+                    continue
+                with profiling.span("style.ref", rid=rid):
+                    styles.append(self.style_from_ref(ref))
         items = self.synthesize_mel_batch([r[0] for r in requests], styles)
-        for (_text, path, *_), (mel, mel_post, *_) in zip(requests, items):
-            save_wav(path, self.vocode(mel if vocode_prepostnet else mel_post),
-                     self.hparams.sampling_rate)
+        for (_text, path, *_), (mel, mel_post, *_), rid in zip(requests, items, rids):
+            with profiling.span("vocode", rid=rid):
+                wav = self.vocode(mel if vocode_prepostnet else mel_post)
+            with profiling.span("wav.write", rid=rid):
+                save_wav(path, wav, self.hparams.sampling_rate)
         return [r[1] for r in requests]
 
     @torch.no_grad()

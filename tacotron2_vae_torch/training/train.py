@@ -30,7 +30,9 @@ global batch's; one gradient all-reduce a step over the data ranks; rank
 the card unless ``--device cpu``.  The logs are TensorBoard events (with
 tensorboardX) and CSV files (``training.logger``).  ``--hparams
 fp16_run=True`` trains in float16 with the dynamic loss scaler; the
-scaler is checkpointed and resumed with the rest.
+scaler is checkpointed and resumed with the rest.  While ``utils.profiling``
+records, the loop's wait for the next batch is a ``loop.data`` span and its
+metric copies and logging (``close_window``, ``drain``) are ``loop.log``.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from ..data.dataset import DataLoader, TextMelDataset
 from ..data.prefetch import prefetch
 from ..ops.layers import set_cudnn_flags
 from ..parallel import mesh
+from ..utils import profiling
 from .checkpoint import (load_checkpoint, logical_state, save_checkpoint,
                          warm_start as warm_start_fn)
 from .logger import Tacotron2Logger
@@ -143,6 +146,7 @@ def validate(eval_step, ts, val_loader, generator):
 
 # the columns of a queued step's metrics, fetched a window at a time
 _FETCHED = ("loss", "grad_norm", "kl_loss", "recon_loss", "updated")
+_END = object()
 
 
 def train(output_directory, log_directory, checkpoint_path, warm_start, hp, device=None,
@@ -231,17 +235,24 @@ def train(output_directory, log_directory, checkpoint_path, warm_start, hp, devi
     for epoch in range(epoch_offset, hp.epochs):
         if lead:
             print(f"Epoch: {epoch}", flush=True)
-        for item in prefetch(train_loader.epoch(epoch), depth=max(1, hp.prefetch_depth),
-                             transform=to_device):
+        batches = prefetch(train_loader.epoch(epoch), depth=max(1, hp.prefetch_depth),
+                           transform=to_device)
+        while True:
+            with profiling.span("loop.data"):
+                item = next(batches, _END)
+            if item is _END:
+                break
             m = train_step(ts, receive(item), generator)
             open_rows.append((iteration, torch.stack([m[k].float() for k in _FETCHED]),
                               m["kl_weight"]))
             del m
             if len(open_rows) == window:
-                close_window()
-                drain(0 if window == 1 else 1)
+                with profiling.span("loop.log"):
+                    close_window()
+                    drain(0 if window == 1 else 1)
             if iteration % hp.iters_per_checkpoint == 0 and iteration > 0:
-                drain_all()
+                with profiling.span("loop.log"):
+                    drain_all()
                 # every rank validates, so the ranks' generators stay alike
                 val_loss, val_aux, last = validate(eval_step, ts, val_loader, generator)
                 state = logical_state(ts)  # every rank: a row gathers its slices

@@ -34,6 +34,12 @@ scale, the gradients are divided by it before their global norm, and a
 step whose loss or norm is not finite is skipped and halves the scale.
 The scaler's state is on the device (``TrainState.scaler``), so the step
 still never waits for the card.
+
+While ``utils.profiling`` records, a train step is a ``step`` span whose
+children are ``step.forward`` (the model's ``fwd.encoder``, ``fwd.vae``,
+``fwd.decoder`` and ``fwd.postnet``), ``step.loss``, ``step.backward``
+(each once a micro-batch) and ``step.optimizer`` (the norm, the clip,
+Adam and the batchnorm restore); they time the host's dispatch.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ import torch
 
 from ..models.tacotron2 import Tacotron2, init_weights
 from ..parallel import mesh
+from ..utils import profiling
 from .loss import tacotron2_vae_loss
 from .loss_scaler import DynamicLossScaler, ScalerState
 
@@ -207,6 +214,10 @@ def make_train_step(hp, grid: mesh.Grid | None = None):
     world = grid.data if grid is not None else 1
 
     def train_step(ts: TrainState, batch, generator=None):
+        with profiling.span("step"):
+            return _step(ts, batch, generator)
+
+    def _step(ts: TrainState, batch, generator):
         model, opt = ts.model, ts.optimizer
         scale = ts.scaler.scale if scaler is not None else None
         if not isinstance(batch, dict):
@@ -217,13 +228,16 @@ def make_train_step(hp, grid: mesh.Grid | None = None):
         sums = None
         with mesh.scope(grid):
             for micro in (_split(batch, accum) if accum > 1 else (batch,)):
-                out = model(micro, train=True, generator=generator)
-                _, aux = tacotron2_vae_loss(out, micro["mel"], micro["gate"], ts.step, hp)
-                kl_weight = aux["kl_weight"]
-                loss = aux["recon_loss"] + kl_weight * (accum * world) * aux["kl_loss"]
-                (loss if scale is None else loss * scale).backward()
-                part = torch.stack([aux[k].detach() for k in AUX_KEYS])
-                sums = part if sums is None else sums + part
+                with profiling.span("step.forward"):
+                    out = model(micro, train=True, generator=generator)
+                with profiling.span("step.loss"):
+                    _, aux = tacotron2_vae_loss(out, micro["mel"], micro["gate"], ts.step, hp)
+                    kl_weight = aux["kl_weight"]
+                    loss = aux["recon_loss"] + kl_weight * (accum * world) * aux["kl_loss"]
+                    part = torch.stack([aux[k].detach() for k in AUX_KEYS])
+                    sums = part if sums is None else sums + part
+                with profiling.span("step.backward"):
+                    (loss if scale is None else loss * scale).backward()
         params = list(model.parameters())
         for p in params:
             if p.grad is None:
@@ -246,10 +260,11 @@ def make_train_step(hp, grid: mesh.Grid | None = None):
         aux = {k: sums[i] / n if n > 1 and k != "kl_loss" else sums[i]
                for i, k in enumerate(AUX_KEYS)}
         total = aux["recon_loss"] + kl_weight * aux["kl_loss"]
-        grad_norm, ok = optimizer_update(ts, hp, total)
-        if saved is not None:
-            _restore_unless(ok, buffers, saved)
-        opt.zero_grad(set_to_none=True)
+        with profiling.span("step.optimizer"):
+            grad_norm, ok = optimizer_update(ts, hp, total)
+            if saved is not None:
+                _restore_unless(ok, buffers, saved)
+            opt.zero_grad(set_to_none=True)
         ts.step += 1
         metrics = {"loss": total.detach(), "grad_norm": grad_norm, "updated": ok,
                    "kl_weight": kl_weight}

@@ -211,3 +211,114 @@ def test_concurrent_api_requests_are_micro_batched(server, synth, monkeypatch):
         _wav(base64.b64decode(data))
     assert sum(sizes) == len(texts)
     assert max(sizes) >= 2, sizes
+
+
+class _FakeSynth:
+    """Writes a tiny wav for each request of a batch; no model."""
+
+    def __init__(self):
+        self.batches = []
+
+    def synthesize_batch(self, reqs):
+        self.batches.append([r[0] for r in reqs])
+        time.sleep(0.01)
+        for r in reqs:
+            wavfile.write(r[1], 16000, np.zeros(160, np.int16))
+        return [r[1] for r in reqs]
+
+
+def test_recorded_requests_carry_one_rid_across_threads(tmp_path, monkeypatch):
+    """Each /api or /generate request yields ``http``, ``http.submit`` and
+    ``batcher.queue`` with one request id (the handler's and the worker's
+    threads), and each ``batch`` lists exactly the ids it served."""
+    from tacotron2_vae_torch.utils import profiling
+
+    fake = _FakeSynth()
+    monkeypatch.setattr(app_mod, "synthesizer", fake)
+    monkeypatch.setattr(app_mod, "_WEB", str(tmp_path / "web"))
+    monkeypatch.setattr(app_mod, "_batcher", None)
+    monkeypatch.setattr(app_mod, "_window_s", 0.05)
+    srv = app_mod.make_server(0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    texts = [f"문장 {i}" for i in range(6)]
+
+    def hit(i):
+        if i % 2:
+            _post(url, texts[i])
+        else:
+            with urllib.request.urlopen(f"{url}/generate?text={quote(texts[i])}",
+                                        timeout=60) as r:
+                _wav(r.read())
+
+    profiling.start()
+    try:
+        threads = [threading.Thread(target=hit, args=(i,)) for i in range(len(texts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        rec = profiling.stop()
+        srv.shutdown()
+    spans = rec["spans"]
+    http = [d for d in spans if d["name"] == "http"]
+    assert len(http) == len(texts) and len({d["rid"] for d in http}) == len(texts)
+    for h in http:
+        sub = [d for d in spans if d["name"] == "http.submit" and d["rid"] == h["rid"]]
+        queue = [d for d in spans if d["name"] == "batcher.queue" and d["rid"] == h["rid"]]
+        assert len(sub) == 1 and sub[0]["parent"] == h["id"]
+        assert sub[0]["thread"] == h["thread"]
+        assert len(queue) == 1 and queue[0]["thread"] != h["thread"]
+        assert h["start"] <= queue[0]["start"] <= queue[0]["end"] <= h["end"]
+    batches = [d for d in spans if d["name"] == "batch"]
+    served = sorted(r for b in batches for r in b["rids"])
+    assert served == sorted(d["rid"] for d in http)
+    assert [len(b["rids"]) for b in batches] == [len(b) for b in fake.batches]
+    for b in batches:     # a request is queued until its own batch starts
+        for r in b["rids"]:
+            q = next(d for d in spans if d["name"] == "batcher.queue" and d["rid"] == r)
+            assert q["end"] <= b["start"] and q["thread"] == b["thread"]
+    assert any(d["name"] == "batcher.idle" for d in spans)
+
+
+def test_synthesizer_records_its_stages(synth, tmp_path):
+    """A batch of a reference-clip request and a ratios request on the CPU:
+    ``batch.styles`` (one ``style.ref``), ``mel`` with ``mel.text``,
+    ``mel.encoder``, ``mel.decode``, ``mel.postnet`` and ``mel.fetch``, and
+    ``vocode`` and ``wav.write`` per item, each with its request id."""
+    from tacotron2_vae_torch.utils import profiling
+
+    ref = str(tmp_path / "ref.wav")
+    x = 0.3 * np.sin(2 * np.pi * 180 * np.arange(12000) / 16000)
+    wavfile.write(ref, 16000, (x * 32767).astype(np.int16))
+    reqs = [("안녕", str(tmp_path / "a.wav"), True, ref, None),
+            ("반갑습니다", str(tmp_path / "b.wav"), False, None, [0.5, 0.5, 0, 0])]
+    profiling.start()
+    try:
+        with profiling.span("batch", rids=[11, 12]):
+            synth.synthesize_batch(reqs)
+    finally:
+        rec = profiling.stop()
+    spans = rec["spans"]
+    by_id = {d["id"]: d for d in spans}
+
+    def chain(d):
+        out = []
+        while d["parent"] is not None:
+            d = by_id[d["parent"]]
+            out.append(d["name"])
+        return out
+
+    names = [d["name"] for d in spans]
+    for n in ("batch.styles", "style.ref", "mel", "mel.text", "mel.encoder", "mel.decode",
+              "mel.postnet", "mel.fetch", "vocode", "wav.write"):
+        assert n in names, n
+        assert all(chain(d)[-1] == "batch" for d in spans if d["name"] == n), n
+    style = next(d for d in spans if d["name"] == "style.ref")
+    assert chain(style) == ["batch.styles", "batch"] and style["rid"] == 11
+    mel = next(d for d in spans if d["name"] == "mel")
+    assert [d["name"] for d in spans if d["parent"] == mel["id"]] == [
+        "mel.text", "mel.encoder", "mel.decode", "mel.postnet", "mel.fetch"]
+    for kind in ("vocode", "wav.write"):
+        assert [d["rid"] for d in spans if d["name"] == kind] == [11, 12]

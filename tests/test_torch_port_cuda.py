@@ -451,7 +451,8 @@ def test_kernels_refuse_an_unknown_dtype_code_on_card(cuda_device, entry):
         fn = dl._kernel_fn()
         ints = (code, 1, 16, 64, 64, 64, 32, 32, 8, 31, 80)
         counts = (ctypes.c_int * 2)()
-        err = fn(*ints, *([null] * 18), 4, ctypes.c_float(0.5), 0, 0, 1, 1, counts, null)
+        err = fn(*ints, *([null] * 18), 4, ctypes.c_float(0.5), 0, 0, 1, 1, counts, null,
+                 null, null)
     else:
         fn = tf._fn(entry, f"t2v_{entry}", 11, 31 if entry == "teacher_fwd" else 45)
         err = fn(code, 3, 1, 16, 64, 64, 32, 32, 8, 31, 0,
