@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # everything, as below
     python3 chip_smoke.py --k34      # build, then only the K3/K4 checks
+    python3 chip_smoke.py --k78      # build K7/K8 alone: their checks and timings
     python3 chip_smoke.py --k56      # build, then only K5/K6 and the probes' entry
     python3 chip_smoke.py --k12      # build K1/K2 alone: their checks, then their timings
                                      # (K1's L2 facts first)
@@ -29,11 +30,19 @@
    recurrent dropout off and on: every output, and every gradient of the
    recurrence through K4 against the same gradients through the twin;
    K5 and K6 (the reshape and output-block probes) at the probes' shapes,
-   on the probes' inputs and on random ones.  Times each kernel, its twin
+   on the probes' inputs and on random ones; K7 and K8 (the encoder's
+   BiLSTM recurrence forward and backward) through their autograd.Function
+   against autograd through the plain loop at serve shapes (B 1/2/4, T
+   64-128), a partial row tile and training shapes (B=64, T 151 and 561,
+   mixed lengths) at H=256 and at the other hidden sizes they take, in
+   bf16, float16 and f32 (``k78_phase``), and a served and a trained
+   encoder call, one K7 launch each and one K8 for the backward.  Times each kernel, its twin
    and, for K2, K5 and K6, one library call, in turns (5 rounds): K2 at the
    serve shape and at a training clip; K5 and K6 at the probes' shapes,
    each call from a 200-call CUDA graph, beside an empty kernel launched
-   the same way (the floor of launch cost); for K3/K4
+   the same way (the floor of launch cost); K7/K8 in bf16 at four shapes
+   beside their twins, autograd through the loop and cuDNN's LSTM (a
+   yardstick the port never calls); for K3/K4
    also the device time per step of each of their kernels and, as a
    yardstick the port never calls, one bf16 ``torch.mm`` per LSTM product
    shape; K3/K4 and K1 in float16 are timed too.
@@ -80,8 +89,10 @@
    Then the HTTP API (``serving.app.make_server``) with that synthesizer:
    4 concurrent ``POST /api`` and one ``GET /generate``; every reply a
    finite wav, and the micro-batcher must group >= 2 requests into one K1
-   launch.  Last, 3 full-width WaveGlow train steps (batch 4, 16000-sample
-   segments): finite loss, ms/step, peak memory.
+   launch.  Over the phase each decode (K1) must follow a K7 launch, its
+   batch's encoder call, and no K8 may launch.  Last, 3 full-width WaveGlow
+   train steps (batch 4, 16000-sample segments): finite loss, ms/step, peak
+   memory.
 6. Tools, each through its ``main`` on the card: ``tools/smoke_train.py`` at
    full width (B=16, S=32, T=128) in bf16 and in ``fp16_run``: the loss must
    fall, and in bf16 fall below ``SMOKE_LOSS_RATIO_MAX`` of its 25th step's
@@ -1060,6 +1071,205 @@ def k34_phase(model, device, dtypes=K34_DTYPES):
     return report, rows
 
 
+# ------------------------------------------------ K7 / K8 (--k78)
+
+K78_IN, K78_H = 512, 256   # the encoder's input width and hidden size a direction
+# (B, T, lengths) held to the twins at H = K78_H: served batches (B 1/2/4,
+# texts of 32-128 symbols) and training batches (B = 64; the corpus's texts
+# are 14-561 symbols, 151 at the 90th percentile), a partial row tile (13
+# rows in a tile of 16); "mixed": row 0 is T long, the others drawn in 1..T
+K78_CASES = ((1, 64, None), (2, 77, (77, 40)), (4, 128, (128, 97, 64, 3)), (13, 45, "mixed"),
+             (64, 151, "mixed"), (64, 561, "mixed"))
+K78_SIZES = ((16, 4, 11), (32, 5, 19), (64, 9, 23), (128, 3, 17))  # the other hidden sizes: (H, B, T)
+K78_TIMED = ((1, 64), (4, 128), (64, 151), (64, 561))  # (B, T) timed in bf16
+K78_DTYPES = ("bfloat16", "float16", "float32")
+# Limits on the kernels against autograd through the plain loop on the card,
+# per output: ``out`` max |difference| (the outputs lie in (-1, 1)); dgx,
+# dw_hh and dbias max |difference| / max |loop|.  float32: sum order alone
+# (measured 1.8e-7 and 4.4e-6 at most, PERF.md).  bf16 and float16: the
+# products take the same rounded operands, but a sum-order difference flips
+# a rounding of h (or of the rounded dh, or of dw_hh) now and then, and the
+# flip feeds back through the steps that follow (bf16 measured 1.3e-4 and
+# 5.4e-3 at most; float16 1.6e-5 and 6.7e-4: its ulp is 2^-3 of bf16's).
+K78_TOL = {"float32": {"out": 2e-6, "grad": 5e-5},
+           "bfloat16": {"out": 2e-3, "grad": 2e-2},
+           "float16": {"out": 2.5e-4, "grad": 2.5e-3}}
+
+
+def k78_inputs(B, T, lengths, H, device, seed):
+    """gx (2, B, T, 4H), w_hh (2, 4H, H), bias (2, 4H), lengths (B,) and an
+    output gradient (2, B, T, H) from ``seed``: w_hh and bias at PyTorch's
+    LSTM init, U(-1/sqrt(H), 1/sqrt(H))."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    if lengths == "mixed":
+        lengths = (T, *rng.randint(1, T + 1, B - 1))
+    lens = torch.tensor(lengths or (T,) * B, device=device)
+
+    def rand(*shape, scale):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(device)
+
+    k = 1.0 / math.sqrt(H)
+    w = torch.from_numpy(rng.uniform(-k, k, (2, 4 * H, H)).astype(np.float32)).to(device)
+    b = torch.from_numpy(rng.uniform(-2 * k, 2 * k, (2, 4 * H)).astype(np.float32)).to(device)
+    return rand(2, B, T, 4 * H, scale=0.5), w, b, lens, rand(2, B, T, H, scale=0.1)
+
+
+def k78_bound(B, T, H, dtype_name, fwd):
+    """Least time of one K7 (with its residuals) or K8 call: the recurrent
+    product at the stream dtype's peak, against every input read once and
+    every output written once (all T steps of each row)."""
+    itemsize = 4 if dtype_name == "float32" else 2
+    ops = 2.0 * 2 * B * T * 4 * H * H
+    rows = 2 * B * T
+    if fwd:  # gx in; out, gates and cells out
+        n_bytes = 4 * rows * (4 * H + H + 4 * H + H)
+    else:    # dout, gates and cells in; dg out
+        n_bytes = 4 * rows * (H + 4 * H + H + 4 * H)
+    return bound(n_bytes + 2 * 4 * H * H * itemsize, ops, dtype_name)
+
+
+def k78_check(B, T, lengths, H, dtype_name, device, timed=False, seed=SEED):
+    """K7 and K8, through the recurrence's autograd.Function as the encoder
+    calls it, against autograd through the plain loop on the same card;
+    the inference call (no residuals) against the training call bit for bit,
+    and a second K8 call against the first; each call one launch."""
+    import torch
+    from tacotron2_vae_torch.ops import encoder_lstm as el
+
+    gx, w, b, lens, dout = k78_inputs(B, T, lengths, H, device, seed + 1000 * B + T)
+    dtype = None if dtype_name == "float32" else getattr(torch, dtype_name)
+    rev = (False, True)
+    tol = K78_TOL[dtype_name]
+    row = {"kernel": "K7+K8", "dtype": dtype_name, "B": B, "T": T, "H": H,
+           "lengths": lens.tolist() if B <= 4 else [int(lens.min()), int(lens.max())],
+           "fails": []}
+    leaves = [x.clone().requires_grad_() for x in (gx, w, b)]
+    n0 = (el.lstm_fwd.launches, el.lstm_bwd.launches)
+    out = el.lstm_dirs(*leaves, lens, rev, dtype)
+    got = torch.autograd.grad(out, leaves, dout)
+    row["launches"] = [el.lstm_fwd.launches - n0[0], el.lstm_bwd.launches - n0[1]]
+    again = torch.autograd.grad(el.lstm_dirs(*leaves, lens, rev, dtype), leaves, dout)
+    with torch.no_grad():
+        infer = el.lstm_dirs(gx, w, b, lens, rev, dtype)
+    ref = el.lstm_fwd_plain(*leaves, el.valid_mask(T, lens, rev, device), dtype)[0]
+    want = torch.autograd.grad(ref, leaves, dout)
+    torch.cuda.synchronize()
+    row["out"] = float((out - ref).detach().abs().max())
+    for name, g, r in zip(("dgx", "dw_hh", "dbias"), got, want):
+        row[name] = rel_err(g, r)
+        if not row[name] <= tol["grad"] or not bool(torch.isfinite(g).all()):
+            row["fails"].append(name)
+    if not row["out"] <= tol["out"] or not bool(torch.isfinite(out).all()):
+        row["fails"].append("out")
+    if not torch.equal(infer, out):
+        row["fails"].append("inference call")
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        row["fails"].append("K8 deterministic")
+    if row["launches"] != [1, 1]:
+        row["fails"].append("one launch a call")
+    if timed:
+        wq = w.to(dtype or torch.float32).contiguous()
+        _, g, c = el.lstm_fwd(gx, wq, b, lens, rev)
+        t0 = time.perf_counter()
+        el.lstm_fwd(gx, wq, b, lens, rev, save=False)
+        row["K7_host_ms"] = (time.perf_counter() - t0) * 1e3
+        reps = 20 if T <= 200 else 5
+        row["K7_ms"] = cuda_ms(lambda: el.lstm_fwd(gx, wq, b, lens, rev), reps)
+        row["K7_infer_ms"] = cuda_ms(lambda: el.lstm_fwd(gx, wq, b, lens, rev, save=False), reps)
+        row["K8_ms"] = cuda_ms(lambda: el.lstm_bwd(dout, g, c, wq, lens, rev), reps)
+        valid = el.valid_mask(T, lens, rev, device)
+        with torch.no_grad():
+            row["K7_plain_ms"] = cuda_ms(lambda: el.lstm_fwd_plain(gx, wq, b, valid, dtype), 2)
+            row["K8_plain_ms"] = cuda_ms(
+                lambda: el.lstm_bwd_plain(dout, g, c, wq, valid, dtype), 2)
+
+        def loop_fwd_bwd():
+            o = el.lstm_fwd_plain(*leaves, valid, dtype)[0]
+            torch.autograd.grad(o, leaves, dout)
+
+        row["loop_autograd_ms"] = cuda_ms(loop_fwd_bwd, 1)
+        # the library yardstick (never called by the port): cuDNN's LSTM on
+        # the padded batch, its input product included
+        lib = torch.nn.LSTM(K78_IN, H, batch_first=True, bidirectional=True).to(
+            device, dtype or torch.float32)
+        x = torch.randn(B, T, K78_IN, device=device, dtype=dtype or torch.float32)
+        with torch.no_grad():
+            row["cudnn_fwd_ms"] = cuda_ms(lambda: lib(x), reps)
+        xg = x.clone().requires_grad_()
+        row["cudnn_fwd_bwd_ms"] = cuda_ms(lambda: lib(xg)[0].sum().backward(), reps)
+        for k, fwd in (("K7", True), ("K8", False)):
+            row[f"{k}_bound_ms"], row[f"{k}_bound_by"] = k78_bound(B, T, H, dtype_name, fwd)
+            row[f"{k}_us_per_step"] = row[f"{k}_ms"] * 1e3 / T
+    return row
+
+
+def k78_encoder_launches(model, device):
+    """One K7 launch for a served encoder call, one K7 and one K8 for a
+    training forward and backward, and the program's counters agree."""
+    import torch
+    from tacotron2_vae_torch.ops import encoder_lstm as el
+    from tacotron2_vae_torch.utils import profiling
+
+    enc = copy.deepcopy(model.encoder).requires_grad_(True)
+    B, T = 4, 96
+    x = torch.randn(B, T, enc.lstm.input_size, device=device, dtype=torch.bfloat16)
+    lens = torch.tensor([96, 80, 41, 7], device=device)
+    n0 = (el.lstm_fwd.launches, el.lstm_bwd.launches)
+    profiling.start()
+    with torch.no_grad():
+        enc(x, lens, dtype=torch.bfloat16, mask_conv_inputs=True)
+    served = (el.lstm_fwd.launches - n0[0], el.lstm_bwd.launches - n0[1])
+    g = torch.Generator(device=device).manual_seed(SEED)
+    enc(x, lens, dtype=torch.bfloat16, train=True, generator=g).float().square().mean().backward()
+    counters = profiling.stop()["counters"]
+    row = {"check": "encoder_launches", "served": list(served),
+           "trained": [el.lstm_fwd.launches - n0[0] - served[0],
+                       el.lstm_bwd.launches - n0[1] - served[1]],
+           "counters": {k: v for k, v in counters.items() if k.startswith("encoder_lstm")}}
+    print(json.dumps(row), flush=True)
+    if (row["served"] != [1, 0] or row["trained"] != [1, 1]
+            or row["counters"] != {"encoder_lstm.fwd": 2, "encoder_lstm.bwd": 1}):
+        raise AssertionError(f"the encoder did not run through K7/K8 once a call: {row}")
+    return row
+
+
+def k78_phase(model, device, dtypes=K78_DTYPES):
+    """K7 and K8 against autograd through the loop at every case and dtype
+    (the K78_TIMED shapes timed in bf16), the other hidden sizes, and the
+    encoder's launches; rows to ``chiprun_out/chip_smoke_k78.json``.
+    Returns ({"K7": ..., "K8": ...} for the kernel table, rows)."""
+    rows, failed = [], []
+    cases = [(B, T, lens, K78_H) for B, T, lens in K78_CASES]
+    cases += [(B, T, "mixed", H) for H, B, T in K78_SIZES]
+    report = {"K7": {"max_abs_err": 0.0}, "K8": {"max_abs_err": 0.0}}
+    for B, T, lens, H in cases:
+        for dtype_name in dtypes:
+            timed = dtype_name == "bfloat16" and (B, T) in K78_TIMED and H == K78_H
+            row = k78_check(B, T, lens, H, dtype_name, device, timed)
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+            failed += [row] if row["fails"] else []
+            report["K7"]["max_abs_err"] = max(report["K7"]["max_abs_err"], row["out"])
+            report["K8"]["max_abs_err"] = max(report["K8"]["max_abs_err"], row["dgx"])
+            if timed and (B, T) == K78_TIMED[-1]:  # the longest training batch
+                for k in ("K7", "K8"):
+                    report[k].update(ms=row[f"{k}_ms"], plain_ms=row[f"{k}_plain_ms"],
+                                     bound_ms=row[f"{k}_bound_ms"],
+                                     bound_by=row[f"{k}_bound_by"],
+                                     library_ms=row["cudnn_fwd_ms" if k == "K7"
+                                                    else "cudnn_fwd_bwd_ms"])
+    rows.append(k78_encoder_launches(model, device))
+    with open(os.path.join(OUT_DIR, "chip_smoke_k78.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    if failed:
+        raise AssertionError(f"{len(failed)} K7/K8 check(s) disagree with the loop: "
+                             f"{[(r['dtype'], r['B'], r['T'], r['H'], r['fails']) for r in failed]}")
+    return report, rows
+
+
 # ------------------------------------------------ K1 / K2 (--k12)
 
 # (S, steps) of K1's per-kernel reads: the shape the kernels are tuned at and
@@ -1157,6 +1367,7 @@ def steady_steps(hp, device):
     frames per second, peak device memory.  The loss and the gradient norm
     must stay finite and the loss fall."""
     import torch
+    from tacotron2_vae_torch.ops import encoder_lstm as el
     from tacotron2_vae_torch.ops import teacher_fwd as tf
     from tacotron2_vae_torch.training.train_state import create_train_state, make_train_step
 
@@ -1167,6 +1378,7 @@ def steady_steps(hp, device):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tf.teacher_fwd.launches = tf.teacher_bwd.launches = 0
+    el.lstm_fwd.launches = el.lstm_bwd.launches = 0
     captures, updates = tf.graph_captures(), tf.graph_updates()
     build_ms = tf.graph_instantiate_ms()
     n_steps = TRAIN_STEPS + 1 + PIPELINED + 1
@@ -1197,7 +1409,8 @@ def steady_steps(hp, device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     metrics = torch.stack(metrics).cpu().tolist()
-    launches = {"K3": tf.teacher_fwd.launches, "K4": tf.teacher_bwd.launches}
+    launches = {"K3": tf.teacher_fwd.launches, "K4": tf.teacher_bwd.launches,
+                "K7": el.lstm_fwd.launches, "K8": el.lstm_bwd.launches}
     captures = {k: v - captures[k] for k, v in tf.graph_captures().items()}
     updates = {k: v - updates[k] for k, v in tf.graph_updates().items()}
     build_ms = {k: v - build_ms[k] for k, v in tf.graph_instantiate_ms().items()}
@@ -1222,8 +1435,9 @@ def steady_steps(hp, device):
         raise AssertionError(f"non-finite loss or grad norm: {losses} {row['grad_norm']}")
     if not (all(m[2] == 1.0 for m in metrics) and losses[TRAIN_STEPS] < losses[0]):
         raise AssertionError(f"the loss did not fall over {TRAIN_STEPS + 1} steps: {losses}")
-    if launches["K3"] != n_steps or launches["K4"] != n_steps:
-        raise AssertionError(f"the train steps did not run through K3/K4: {launches}")
+    if any(n != n_steps for n in launches.values()):
+        raise AssertionError(f"the train steps did not run through K3/K4/K7/K8 once a step: "
+                             f"{launches}")
     if max(captures.values()) > 1:
         raise AssertionError(f"K3/K4 instantiated more than one graph for one batch shape: "
                              f"{captures}")
@@ -1249,6 +1463,7 @@ def train_entry(hp, device, tmp):
     cache warmed in bulk, which continues at iteration 3 and checkpoints at
     4 and 6.  K2, K3 and K4 must all launch."""
     import numpy as np
+    from tacotron2_vae_torch.ops import encoder_lstm as el
     from tacotron2_vae_torch.ops import stft_mel as sm
     from tacotron2_vae_torch.ops import teacher_fwd as tf
     from tacotron2_vae_torch.training import train as tr
@@ -1260,6 +1475,7 @@ def train_entry(hp, device, tmp):
     out = os.path.join(tmp, "out")
     sm.mel_spectrogram_fused.launches = 0
     tf.teacher_fwd.launches = tf.teacher_bwd.launches = 0
+    el.lstm_fwd.launches = el.lstm_bwd.launches = 0
     t0 = time.perf_counter()
     _, it = tr.train(out, "logs", None, False, hp2, device=str(device))
     ckpt = os.path.join(out, "checkpoint_2")
@@ -1267,7 +1483,8 @@ def train_entry(hp, device, tmp):
                       device=str(device))
     wall = time.perf_counter() - t0
     launches = {"K2": sm.mel_spectrogram_fused.launches, "K3": tf.teacher_fwd.launches,
-                "K4": tf.teacher_bwd.launches}
+                "K4": tf.teacher_bwd.launches, "K7": el.lstm_fwd.launches,
+                "K8": el.lstm_bwd.launches}
     with open(os.path.join(out, "logs", "metrics.csv")) as f:
         iters = [int(line.split(",")[0]) for line in f.readlines()[1:]]
     with open(os.path.join(out, "logs", "val_metrics.csv")) as f:
@@ -1282,7 +1499,7 @@ def train_entry(hp, device, tmp):
     if not all(os.path.exists(os.path.join(out, f"checkpoint_{i}")) for i in (2, 4, 6)):
         raise AssertionError(f"missing checkpoints: {row['checkpoints']}")
     if min(launches.values()) < 1:
-        raise AssertionError(f"train() did not run through K2/K3/K4: {launches}")
+        raise AssertionError(f"train() did not run through K2/K3/K4/K7/K8: {launches}")
     return row
 
 
@@ -2278,10 +2495,12 @@ def waveglow_train(wg, device):
 
 def serve_phase(model, hp, device, tmp):
     """Griffin-Lim requests, WaveGlow requests (float32, bf16), the vocoder
-    alone, the HTTP API, WaveGlow train steps.  K1 and K2 launches are
-    counted over the whole phase."""
+    alone, the HTTP API, WaveGlow train steps.  K1, K2, K7 and K8 launches
+    are counted over the whole phase: every decode (K1) follows its
+    batch's encoder call, which must run K7, and serving runs no K8."""
     import torch
     from tacotron2_vae_torch.ops import decoder_loop as dl
+    from tacotron2_vae_torch.ops import encoder_lstm as el
     from tacotron2_vae_torch.ops import stft_mel as sm
     from tacotron2_vae_torch.serving.synthesizer import Synthesizer
 
@@ -2289,6 +2508,7 @@ def serve_phase(model, hp, device, tmp):
     ckpt, wg_path, manifest, ref = serve_files(model, wg, tmp)
     dl.decode_loop.launches = dl.decode_loop.tail_launches = 0
     sm.mel_spectrogram_fused.launches = 0
+    el.lstm_fwd.launches = el.lstm_bwd.launches = 0
     synth = Synthesizer(hp, device=device)
     synth.load(ckpt, centroid_filelist=manifest)
     if not synth.centroids_loaded:
@@ -2306,8 +2526,10 @@ def serve_phase(model, hp, device, tmp):
     synth.vocoder_dtype = None
     http = http_phase(synth, tmp)
     launches = {"K1": dl.decode_loop.launches, "K2": sm.mel_spectrogram_fused.launches,
-                "tail_kernel": dl.decode_loop.tail_launches}
-    if launches["K1"] < 4 or launches["K2"] < 1 or launches["tail_kernel"] < 1:
+                "tail_kernel": dl.decode_loop.tail_launches, "K7": el.lstm_fwd.launches,
+                "K8": el.lstm_bwd.launches}
+    if (launches["K1"] < 4 or launches["K2"] < 1 or launches["tail_kernel"] < 1
+            or launches["K7"] < launches["K1"] or launches["K8"]):
         raise AssertionError(f"serving did not run through the kernels: {launches}")
     del synth
     torch.cuda.empty_cache()
@@ -2698,11 +2920,14 @@ def main() -> int:
     t0 = time.perf_counter()
     names = (["reshape_probe"] if "--k56" in sys.argv[1:] else
              ["decoder_loop", "stft_mel"] if "--k12" in sys.argv[1:] else
-             ["decoder_loop", "stft_mel", "teacher_fwd", "teacher_bwd"] if "--fp16" in sys.argv[1:]
-             else ["stft_mel", "teacher_fwd", "teacher_bwd"] if "--tp" in sys.argv[1:]
-             else ["decoder_loop", "stft_mel", "teacher_fwd", "teacher_bwd"]
+             ["encoder_lstm"] if "--k78" in sys.argv[1:] else
+             ["decoder_loop", "stft_mel", "teacher_fwd", "teacher_bwd", "encoder_lstm"]
+             if "--fp16" in sys.argv[1:]
+             else ["stft_mel", "teacher_fwd", "teacher_bwd", "encoder_lstm"] if "--tp" in sys.argv[1:]
+             else ["decoder_loop", "stft_mel", "teacher_fwd", "teacher_bwd", "encoder_lstm"]
              if "--tools" in sys.argv[1:] or "--studies" in sys.argv[1:]
-             else ["decoder_loop", "stft_mel", "teacher_fwd", "teacher_bwd", "reshape_probe"])
+             else ["decoder_loop", "stft_mel", "teacher_fwd", "teacher_bwd", "encoder_lstm",
+                   "reshape_probe"])
     logs = _build.build(names, verbose=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_build.log"), "w") as f:
         for name, log in logs.items():
@@ -2743,6 +2968,9 @@ def main() -> int:
     if "--k34" in sys.argv[1:]:  # the recurrence kernels' checks alone
         k34_phase(model, device)
         return 0
+    if "--k78" in sys.argv[1:]:  # the encoder LSTM kernels' checks and timings alone
+        k78_phase(model, device)
+        return 0
     if "--k12" in sys.argv[1:]:  # the decode-loop and log-mel kernels alone, then timed
         k12_phase(model, hp, device)
         return 0
@@ -2760,6 +2988,7 @@ def main() -> int:
     k56, k56_rows = timed("k56", k56_phase, device)
     report.update(k56)
     k34, k34_rows = timed("k34", k34_phase, model, device)
+    k78, k78_rows = timed("k78", k78_phase, model, device)
     steady = timed("steady_steps", steady_steps, hp, device)
     torch.cuda.empty_cache()
     fp16 = timed("train_fp16", train_fp16, hp, device)
@@ -2779,10 +3008,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     probes = timed("probe_entry", probe_entry)
     launches.update({k: entry["launches"][k] for k in ("K3", "K4")}, **probes["launches"])
+    for key in ("K7", "K8"):  # the served path's (serve_phase) and the trained path's
+        launches[key] += entry["launches"][key]
     for key, n in list(tool_launches.items()) + list(study_launches.items()):
         launches[key] += n
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernel_checks": rows + k56_rows + k34_rows,
+        json.dump({"card": card, "kernel_checks": rows + k56_rows + k34_rows + k78_rows,
                    "requests": results, "train": [steady, fp16, entry, entry16, pipeline, dp, tp],
                    "tools": tools, "studies": studies, "probes": probes,
                    "launches": launches, "phase_s": PHASE_S}, f, indent=1)
@@ -2792,6 +3023,7 @@ def main() -> int:
                     "bound_ms": t["K3_bound_ms"], "bound_by": t["K3_bound_by"]}
     report["K4"] = {"max_abs_err": k34["K4"], "ms": t["K4_ms"], "plain_ms": t["K4_plain_ms"],
                     "bound_ms": t["K4_bound_ms"], "bound_by": t["K4_bound_by"]}
+    report.update(k78)
     meta = {
         "K1": ("decode_loop", "tacotron2_vae_torch/csrc/decoder_loop.cu",
                "tacotron2_vae_tpu/ops/pallas/decoder_loop.py:112 (_kernel), "
@@ -2805,6 +3037,10 @@ def main() -> int:
                "tacotron2_vae_tpu/ops/pallas/teacher_fwd.py:75 (_kernel)"),
         "K4": ("teacher_bwd", "tacotron2_vae_torch/csrc/teacher_bwd.cu",
                "tacotron2_vae_tpu/ops/pallas/teacher_fwd.py:306 (_bwd_kernel)"),
+        "K7": ("encoder_lstm_fwd", "tacotron2_vae_torch/csrc/encoder_lstm.cu",
+               "none: tacotron2_vae_tpu/ops/rnn.py lstm_scan's XLA scan (encoder BiLSTM)"),
+        "K8": ("encoder_lstm_bwd", "tacotron2_vae_torch/csrc/encoder_lstm.cu",
+               "none: autograd of tacotron2_vae_tpu/ops/rnn.py lstm_scan"),
         "K5": ("probe_reshape", "tacotron2_vae_torch/csrc/reshape_probe.cu",
                "tools/reshape_probe.py:31 (probe_reshape.kernel)"),
         "K6": ("probe_out_block", "tacotron2_vae_torch/csrc/reshape_probe.cu",

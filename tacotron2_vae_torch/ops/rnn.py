@@ -6,14 +6,16 @@ checkpoints load as they are.  Each function takes the module's weight
 tensors in PyTorch layout ((4H, in), (4H, H), ...).  Variable lengths follow
 ``pack_padded_sequence``: padded steps do not update the state and emit
 zeros; the backward direction scans the reversed sequence, whose padded
-steps come first and keep the zero initial state.
+steps come first and keep the zero initial state.  The LSTM recurrence
+itself is ``encoder_lstm.lstm_dirs`` (kernels K7/K8 on CUDA).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .layers import cast, linear
+from . import encoder_lstm
+from .layers import linear
 
 
 def lstm_cell(x, h, c, w_ih, w_hh, b_ih, b_hh, dtype=None):
@@ -24,34 +26,6 @@ def lstm_cell(x, h, c, w_ih, w_hh, b_ih, b_hh, dtype=None):
     c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
     return h_new, c_new
-
-
-def _lstm_dirs(gx, w_hh, bias, valid, dtype=None):
-    """LSTM recurrence of D directions stepped together.
-
-    gx (D, B, T, 4H): input projections, each direction in its own time
-    order; w_hh (D, 4H, H); bias (D, 4H); valid (D, T, B, 1) bool or None.
-    One batched hidden product and one set of gate ops per step serve every
-    direction.  Returns outputs (D, B, T, H) in each direction's order."""
-    D, B, T, _ = gx.shape
-    H = w_hh.shape[2]
-    wh = cast(w_hh, dtype).transpose(1, 2)              # (D, H, 4H), cast once
-    h = gx.new_zeros((D, B, H), dtype=torch.float32)
-    c = torch.zeros_like(h)
-    outs = []
-    for t in range(T):
-        g = gx[:, :, t] + torch.bmm(cast(h, dtype), wh) + bias[:, None]
-        sg = torch.sigmoid(g)
-        c_new = sg[..., H:2 * H] * c + sg[..., :H] * torch.tanh(g[..., 2 * H:3 * H])
-        h_new = sg[..., 3 * H:] * torch.tanh(c_new)
-        if valid is not None:
-            h = torch.where(valid[:, t], h_new, h)
-            c = torch.where(valid[:, t], c_new, c)
-            outs.append(torch.where(valid[:, t], h_new, 0.0))
-        else:
-            h, c = h_new, c_new
-            outs.append(h_new)
-    return torch.stack(outs, dim=2)
 
 
 def lstm_scan(xs, w_ih, w_hh, b_ih, b_hh, lengths=None, reverse=False,
@@ -71,17 +45,16 @@ def bilstm(xs, lstm: torch.nn.LSTM, lengths=None, dtype=None):
 
 def _scan_dirs(xs, dirs, lengths, dtype):
     """Run the directions ``dirs`` = [(w_ih, w_hh, b_ih, b_hh, reverse)]
-    together; returns one (B, T, H) output per direction, in time order."""
-    t = torch.arange(xs.shape[1], device=xs.device)
-    order = [t.flip(0) if rev else t for *_, rev in dirs]
-    gx = torch.stack([linear(xs[:, o], d[0], dtype=dtype) for d, o in zip(dirs, order)])
+    together: one input product a direction, then the recurrence of every
+    direction in one call (``encoder_lstm.lstm_dirs``: K7/K8 on CUDA);
+    returns one (B, T, H) output per direction, in time order."""
+    reverse = [rev for *_, rev in dirs]
+    gx = torch.stack([linear(xs.flip(1) if rev else xs, d[0], dtype=dtype)
+                      for d, rev in zip(dirs, reverse)])
     w_hh = torch.stack([d[1] for d in dirs])
     bias = torch.stack([d[2].float() + d[3].float() for d in dirs])
-    valid = None
-    if lengths is not None:
-        valid = torch.stack([(o[:, None] < lengths[None, :])[..., None] for o in order])
-    outs = _lstm_dirs(gx, w_hh, bias, valid, dtype)
-    return [out.flip(1) if rev else out for (*_, rev), out in zip(dirs, outs)]
+    outs = encoder_lstm.lstm_dirs(gx, w_hh, bias, lengths, reverse, dtype)
+    return [out.flip(1) if rev else out for rev, out in zip(reverse, outs)]
 
 
 def gru_cell(x, h, w_ih, w_hh, b_ih, b_hh, dtype=None):

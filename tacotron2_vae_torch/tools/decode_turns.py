@@ -7,11 +7,11 @@ checkout (``.``) or another commit's package unpacked with ``git archive``
 (without its ``chip_smoke.py``: the serving helpers come from this
 checkout's).  The runs go in the order given, each in a process of its own
 that imports that tree's package and nothing of this one, so two commits
-compare on one card in one call.  Every tree's kernels are built before
-the first run, all at once.  Each run builds the full-width model of
-``chip_smoke.random_model`` (random weights from its seed, gate bias -10,
-so every decode runs its full step cap) and prints one ``TURN {json}``
-line:
+compare on one card in one call.  Every tree's kernels (those of
+``KERNELS`` its ``csrc`` holds) are built before the first run, all at
+once.  Each run builds the full-width model of ``chip_smoke.random_model``
+(random weights from its seed, gate bias -10, so every decode runs its
+full step cap) and prints one ``TURN {json}`` line:
 
 * ``k1``: for each weight dtype and B in ``ROWS``, ``profile_decode.profile``
   at S=64, 200 steps: the ms of one ``decode_loop`` call (CUDA events, mean
@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-KERNELS = ("decoder_loop", "stft_mel")
+KERNELS = ("decoder_loop", "stft_mel", "encoder_lstm")  # those a tree has
 ROWS = (1, 4)
 DTYPES = ("bfloat16", "float16", "float32")
 SEQ, STEPS = 64, 200
@@ -166,7 +166,9 @@ def main(argv=None):
         return
     if not torch.cuda.is_available():
         raise SystemExit("decode_turns needs a CUDA card")
-    build = "from tacotron2_vae_torch.ops import _build; _build.build(%r)" % (list(KERNELS),)
+    build = ("import os; from tacotron2_vae_torch.ops import _build; _build.build("
+             "[n for n in %r if os.path.exists(f'tacotron2_vae_torch/csrc/{n}.cu')])"
+             % (list(KERNELS),))
     builds = [subprocess.Popen([sys.executable, "-c", build], cwd=tree)
               for tree in dict.fromkeys(args.trees)]
     if any(b.wait() != 0 for b in builds):

@@ -8,8 +8,9 @@ go in the order given, each in a process of its own that imports that
 tree's package and nothing of this one, so two commits compare on one card
 in one call.  One corpus serves every run: ``profile_train.synthetic_corpus``
 of this checkout, ``iters`` batches at the hparams defaults (B=64, bf16),
-its mel cache warmed first.  Every tree's kernels are built before the
-first run, all at once.  Each run prints one ``TURN {json}`` line:
+its mel cache warmed first.  Every tree's kernels (those of ``KERNELS``
+its ``csrc`` holds) are built before the first run, all at once.  Each
+run prints one ``TURN {json}`` line:
 
 * ``sync_ms_per_step``: ``make_train_step`` on one fixed batch (B, S, T =
   64, 128, 512), CUDA events around each step and a synchronise after it,
@@ -37,7 +38,7 @@ import torch
 
 STEPS = 5                 # synchronised steps timed after one warm-up step
 SYNC_SHAPE = (64, 128, 512)
-KERNELS = ("stft_mel", "teacher_fwd", "teacher_bwd")
+KERNELS = ("stft_mel", "teacher_fwd", "teacher_bwd", "encoder_lstm")  # those a tree has
 
 
 def lru_misses(keys, size: int) -> int:
@@ -186,7 +187,9 @@ def main(argv=None):
     from tacotron2_vae_torch.config import create_hparams
     from tacotron2_vae_torch.data.dataset import TextMelDataset
 
-    build = "from tacotron2_vae_torch.ops import _build; _build.build(%r)" % (list(KERNELS),)
+    build = ("import os; from tacotron2_vae_torch.ops import _build; _build.build("
+             "[n for n in %r if os.path.exists(f'tacotron2_vae_torch/csrc/{n}.cu')])"
+             % (list(KERNELS),))
     builds = [subprocess.Popen([sys.executable, "-c", build], cwd=tree)
               for tree in dict.fromkeys(args.trees)]
     hp = create_hparams()

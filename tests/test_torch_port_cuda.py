@@ -2,7 +2,8 @@
 
 Kernels K1 (decode loop), K2 (STFT -> mel -> log), K3 and K4 (the
 teacher-forced recurrence, forward and backward), K5 and K6 (the reshape
-and output-block probes) have no CPU mode: on a
+and output-block probes), K7 and K8 (the encoder's BiLSTM recurrence,
+forward and backward) have no CPU mode: on a
 CPU tensor their wrappers run the twin, so these tests need a card and skip
 without one.  They import no JAX, so they also run where JAX is absent:
 
@@ -47,7 +48,10 @@ of 4 (scalar heads and tails), B = 1, more blocks than one wave; K6 atol
 1e-5 (sum order) against a float64 product, with rows off its 4-row tile,
 F off its 32-column tile and not a multiple of 4, K off its 4-way split
 and beyond one 128-deep chunk (2048: past the shared-memory limit of the
-earlier design), a misaligned x, T = 1, and two calls bit for bit alike.
+earlier design), a misaligned x, T = 1, and two calls bit for bit alike;
+K7/K8 by ``chip_smoke.k78_check`` and its limits ``K78_TOL`` at serve
+shapes, a partial row tile, B = 64 at T = 561 and every hidden size they
+take, and the encoder's one launch of each a call.
 WaveGlow
 (cuDNN/cuBLAS, no kernel of its own) on the card against the CPU: float32
 to 1e-5 of max |audio| (TF32 would give ~1e-3); bf16 one WaveNet to one
@@ -59,14 +63,16 @@ import pytest
 import torch
 
 from _torch_port_common import TINY, log_mel_float64, n
-from chip_smoke import k1_compare, k34_check
+from chip_smoke import k1_compare, k34_check, k78_check, k78_encoder_launches
 from tacotron2_vae_torch.config import create_hparams
 from tacotron2_vae_torch.models import waveglow as twg
 from tacotron2_vae_torch.models.tacotron2 import Tacotron2, init_weights
 from tacotron2_vae_torch.ops import decoder_loop as dl
+from tacotron2_vae_torch.ops import encoder_lstm as el
 from tacotron2_vae_torch.ops import reshape_probe as rp
 from tacotron2_vae_torch.ops import stft_mel as sm
 from tacotron2_vae_torch.ops.layers import linear
+from tacotron2_vae_torch.tools import multihost_dryrun as mh
 
 
 @pytest.fixture()
@@ -577,3 +583,45 @@ def test_waveglow_bf16_wavenet_on_card_matches_cpu(cuda_device):
         got = twg._wn(wn, x0.to(cuda_device), cond.to(cuda_device), cfg, torch.bfloat16)
     for g, w in zip(got, want):
         assert float((g.cpu() - w).abs().max()) <= 2 ** -8 * float(w.abs().max())
+
+
+# (B, T, lengths, H): served batches (B 1/2/4, S 32-128), a partial row tile
+# of 16, the longest training text at B = 64, and the other hidden sizes
+K78_TEST_CASES = [(1, 32, None, 256), (2, 77, (77, 40), 256), (4, 128, (128, 97, 64, 3), 256),
+                  (13, 45, "mixed", 256), (64, 561, "mixed", 256), (5, 19, "mixed", 32),
+                  (9, 23, "mixed", 64), (3, 17, "mixed", 128), (4, 11, "mixed", 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,lengths,H", K78_TEST_CASES,
+                         ids=[f"B{c[0]}_T{c[1]}_H{c[3]}" for c in K78_TEST_CASES])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_encoder_lstm_kernels_match_loop_on_card(cuda_device, dtype, B, T, lengths, H):
+    """K7 and K8 through the autograd.Function against autograd through the
+    plain loop on the card, by ``chip_smoke.k78_check`` and its limits
+    ``K78_TOL`` (float32: sum order; bf16 and float16: a rounding of h or
+    of the rounded dh flipped by the sum order feeds back): outputs, gx's,
+    w_hh's and the bias's gradients; the inference call bit for bit the
+    training call's outputs; K8 deterministic; one launch each."""
+    row = k78_check(B, T, lengths, H, dtype, cuda_device)
+    assert not row["fails"], row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["", mh.TINY], ids=["full_width", "multihost_dryrun_tiny"])
+def test_encoder_runs_k7_and_k8_once_a_call_on_card(cuda_device, spec):
+    """A served encoder call launches K7 once, a trained one K7 and K8
+    once; the program's counters say the same.  At full width and at the
+    tiny widths ``tools/multihost_dryrun.py`` runs on the card
+    (encoder_embedding_dim 32: H = 16, the smallest the kernels take)."""
+    model = Tacotron2(create_hparams(spec)).to(cuda_device)
+    k78_encoder_launches(model, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,H", [(2, 48), (3, 32), (2, 512)])
+def test_encoder_lstm_kernels_refuse_shapes_on_card(cuda_device, D, H):
+    gx = torch.zeros(D, 2, 5, 4 * H, device=cuda_device)
+    w = torch.zeros(D, 4 * H, H, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        el.lstm_fwd(gx, w, torch.zeros(D, 4 * H, device=cuda_device), None, (False,) * D)

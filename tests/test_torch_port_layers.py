@@ -21,6 +21,7 @@ from tacotron2_vae_tpu.models import vae_gst as jvae
 from tacotron2_vae_tpu.ops import layers as jl
 from tacotron2_vae_tpu.ops import rnn as jr
 from tacotron2_vae_torch.models import vae_gst as tvae
+from tacotron2_vae_torch.ops import encoder_lstm as el
 from tacotron2_vae_torch.ops import layers as tl
 from tacotron2_vae_torch.ops import rnn as tr
 
@@ -120,6 +121,67 @@ def test_lstm_bilstm_gru_with_lengths(setup):
     outs2, hf2 = tr.gru_scan(t(gx), model.vae_gst.ref_encoder.gru, t(glens))
     _close(outs, outs2)
     _close(hf, hf2)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [1, 5])
+@pytest.mark.parametrize("reverse", [(False, True), (True,)], ids=["bilstm", "reversed"])
+def test_lstm_recurrence_function_matches_loop_autograd(reverse, B, dtype):
+    """The recurrence's autograd.Function on the CPU (the twins of K7 and
+    K8, then dw_hh and dbias from one product and a sum) against autograd
+    through the plain loop, with mixed lengths: outputs bit for bit (the
+    same loop); gx's gradient to float32 sum order; dw_hh, rounded once to
+    the stream dtype on both sides, to one ulp of it where the sum order
+    moves a rounding (bf16: 2^-8 of the gradient's scale)."""
+    rng = np.random.RandomState(B)
+    D, T, H = len(reverse), 9, 8
+    gx = t(rng.randn(D, B, T, 4 * H).astype(np.float32)).requires_grad_()
+    w = t((0.4 * rng.randn(D, 4 * H, H)).astype(np.float32)).requires_grad_()
+    b = t((0.2 * rng.randn(D, 4 * H)).astype(np.float32)).requires_grad_()
+    lens = torch.tensor([9, 4, 1, 7, 6][:B])
+    dout = t(rng.randn(D, B, T, H).astype(np.float32))
+    valid = el.valid_mask(T, lens, reverse, "cpu")
+    ref = el.lstm_fwd_plain(gx, w, b, valid, dtype)[0]
+    want = torch.autograd.grad(ref, (gx, w, b), dout)
+    out = el.lstm_dirs(gx, w, b, lens, reverse, dtype)
+    got = torch.autograd.grad(out, (gx, w, b), dout)
+    assert torch.equal(out, ref)
+    assert not out.masked_select(~valid.transpose(1, 2)).any()  # padded steps emit zeros
+    for name, g, r in zip(("dgx", "dw_hh", "dbias"), got, want):
+        scale = float(r.abs().max())
+        tol = 1e-5 if dtype is None or name != "dw_hh" else 2.0 ** -8
+        err = float((g - r).abs().max()) / scale
+        assert err <= tol, (name, err)
+
+
+@pytest.mark.parametrize("D,H,dtype", [(2, 48, torch.bfloat16), (3, 32, torch.bfloat16),
+                                       (2, 512, torch.bfloat16), (1, 32, torch.float64)])
+def test_lstm_recurrence_kernel_refuses_shapes(D, H, dtype):
+    """The kernels' wrapper refuses what K7/K8 do not take (checked before
+    any launch): a hidden size outside ``SIZES``, more than two directions,
+    a stream dtype without a code."""
+    gx = torch.zeros(D, 2, 5, 4 * H)
+    with pytest.raises(ValueError):
+        el._args(gx, torch.zeros(D, 4 * H, H, dtype=dtype), None, (False,) * D)
+
+
+def test_lstm_recurrence_kernel_names_stay_out_of_k34_time():
+    """K7/K8's kernels have names of their own in the profiler's trace:
+    the harness's sum of K3/K4's kernel time (``portbench/train.py``
+    ``K34_KERNELS``, read by ``k34_roofline.train``) leaves them out."""
+    import os
+    import re
+
+    from portbench import train
+
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "tacotron2_vae_torch", "csrc", "encoder_lstm.cu")
+    with open(src, encoding="utf-8") as f:
+        launched = set(re.findall(r"\b([a-z_0-9]+)(?:<[^<>]*>)?<<<", f.read()))
+    assert launched == {"enc_lstm_fwd", "enc_lstm_bwd"}
+    for k in launched:
+        name = f"void (anonymous namespace)::{k}<__nv_bfloat16, 256, 2>(int)"
+        assert not train.K34_KERNELS.search(name), name
 
 
 @pytest.mark.parametrize("dtype", [None, "bfloat16"])
