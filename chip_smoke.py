@@ -4,6 +4,9 @@
     python3 chip_smoke.py            # everything, as below
     python3 chip_smoke.py --k34      # build, then only the K3/K4 checks
     python3 chip_smoke.py --k78      # build K7/K8 alone: their checks and timings
+    python3 chip_smoke.py --k9       # build K9 alone (BigVGAN's anti-aliased activation):
+                                     # its checks and timings, the served path's 109
+                                     # launches a vocode (not in the default run)
     python3 chip_smoke.py --k56      # build, then only K5/K6 and the probes' entry
     python3 chip_smoke.py --k12      # build K1/K2 alone: their checks, then their timings
                                      # (K1's L2 facts first)
@@ -1270,6 +1273,215 @@ def k78_phase(model, device, dtypes=K78_DTYPES):
     return report, rows
 
 
+# ------------------------------------------------ K9 (--k9)
+
+# (C, L) of each BigVGAN stage for a 9.6 s request (600 frames, padded to
+# 640 by the 64-frame bucket): 18 K9 launches a stage, one more at the last
+# stage's shape (activation_post), 109 a generator call
+K9_STAGES = ((768, 2560), (384, 10240), (192, 20480), (96, 40960), (48, 81920), (24, 163840))
+K9_EDGES = ((5, 1), (5, 7), (5, 64), (3, 1025))
+# K9 against its twin on the card: max |difference| over max(1, max |twin|).
+# Both are float32 with the same operations; the kernel fuses multiply-adds
+# and takes another sine, so the two differ by a few float32 ulps of the
+# largest intermediate (sin's argument reaches tens of radians).
+K9_TOL = 2e-6
+# The served wav against the same generator with the library path in K9's
+# place: max |difference| of the tanh output (the generator read 1.0e-7 on
+# the card; a K9 that dropped a filter or a pad moves it by > 1e-2).
+K9_WAV_TOL = 1e-5
+K9_OPS_PER_SAMPLE = 60   # portbench/counts/bigvgan.py gives the count
+
+
+def k9_library(x, alpha, beta, up, down):
+    """The activation as BigVGAN's published modules compute it, a library
+    call at a time (a yardstick the port never calls): replicate pad, a
+    depthwise transposed convolution, a slice, SnakeBeta, a pad, a depthwise
+    strided convolution."""
+    import torch
+    import torch.nn.functional as F
+
+    C = x.shape[1]
+    u = 2 * F.conv_transpose1d(F.pad(x, (5, 5), mode="replicate"), up.expand(C, -1, -1),
+                               stride=2, groups=C)[..., 15:-15]
+    a, b = torch.exp(alpha)[None, :, None], torch.exp(beta)[None, :, None]
+    s = u + (1.0 / (b + 1e-9)) * torch.pow(torch.sin(u * a), 2)
+    return F.conv1d(F.pad(s, (5, 6), mode="replicate"), down.expand(C, -1, -1), stride=2,
+                    groups=C)
+
+
+def k9_inputs(C, L, device, seed):
+    import torch
+
+    from tacotron2_vae_torch.models.bigvgan import kaiser_sinc_filter1d
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = 2.0 * torch.randn(1, C, L, generator=g, device=device)
+    alpha = 0.3 * torch.randn(C, generator=g, device=device)
+    beta = 0.3 * torch.randn(C, generator=g, device=device)
+    filt = kaiser_sinc_filter1d(0.25, 0.3, 12).to(device)
+    return x, alpha, beta, filt, filt
+
+
+def k9_check(C, L, device, rounds=0, seed=SEED):
+    """K9 against its twin and the library path on one (C, L); with
+    ``rounds``, each timed in turns (kernel, twin, library) that many
+    times, a CUDA-event mean over a burst of calls each."""
+    import torch
+
+    from tacotron2_vae_torch.ops import aa_snake as k9
+
+    args = k9_inputs(C, L, device, seed + C + L)
+    got = k9.aa_snake(*args)
+    torch.cuda.synchronize()
+    want = k9.aa_snake_plain(*args)
+    lib = k9_library(*args)
+    scale = max(1.0, float(want.abs().max()))
+    row = {"check": "K9", "C": C, "L": L, "err": float((got - want).abs().max()) / scale,
+           "err_library": float((got - lib).abs().max()) / scale}
+    row["fails"] = [k for k in ("err", "err_library") if not row[k] <= K9_TOL]
+    if rounds:
+        reps = max(5, min(200, int(4e7 // (C * L))))
+        times = {"K9_ms": [], "plain_ms": [], "library_ms": []}
+        for _ in range(rounds):
+            times["K9_ms"].append(cuda_ms(lambda: k9.aa_snake(*args), reps))
+            times["plain_ms"].append(cuda_ms(lambda: k9.aa_snake_plain(*args), max(2, reps // 20)))
+            times["library_ms"].append(cuda_ms(lambda: k9_library(*args), reps))
+        row.update({k: sorted(v)[len(v) // 2] for k, v in times.items()})
+        row.update({k.replace("_ms", "_ms_all"): v for k, v in times.items()})
+        row["bound_ms"], row["bound_by"] = bound(8.0 * C * L, K9_OPS_PER_SAMPLE * C * L,
+                                                 "float32")
+        row["roofline_pct"] = 100.0 * row["bound_ms"] / row["K9_ms"]
+    return row
+
+
+def bigvgan_checkpoint(model, tmp):
+    """A BigVGAN generator checkpoint at the published widths in its
+    published layout, written into ``tmp/bigvgan``: ``model``'s weights,
+    each convolution's split into ``weight_g`` (its row norms) and
+    ``weight_v``, and the config's ``config.json`` beside it."""
+    import dataclasses
+
+    import torch
+
+    sd = {}
+    for k, v in model.state_dict().items():
+        if k.endswith(".weight") and v.ndim == 3:
+            sd[k + "_v"] = v.cpu()
+            sd[k + "_g"] = v.norm(dim=(1, 2), keepdim=True).cpu()
+        else:
+            sd[k] = v.cpu()
+    os.makedirs(os.path.join(tmp, "bigvgan"), exist_ok=True)
+    path = os.path.join(tmp, "bigvgan", "g_00000000")
+    torch.save({"generator": sd}, path)
+    with open(os.path.join(tmp, "bigvgan", "config.json"), "w", encoding="utf-8") as f:
+        json.dump(dataclasses.asdict(model.cfg), f)
+    return path
+
+
+def k9_served(hp, t2, device, tmp):
+    """BigVGAN at the published widths loaded by ``Synthesizer.load`` from a
+    checkpoint in the published layout, then one ``Synthesizer.vocode`` of a
+    600-frame mel (a 9.6 s request, padded to 640 frames): K9's launches
+    counted over that call must be one an ``Activation1d`` (109), and its
+    wav must match the generator with the library path in K9's place
+    (``K9_WAV_TOL``).  Then the loaded generator timed with K9 and with the
+    library path, in turns."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    import tacotron2_vae_torch.models.bigvgan as mbv
+    from tacotron2_vae_torch.ops import aa_snake as k9
+    from tacotron2_vae_torch.serving.synthesizer import Synthesizer
+
+    model = mbv.BigVGAN()
+    g = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("weight"):
+                p.copy_(torch.randn(p.shape, generator=g) * (0.5 / math.sqrt(p[0].numel())))
+            else:
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
+    ckpt = os.path.join(tmp, "checkpoint_random.pt")
+    torch.save({"state_dict": {k: v.cpu() for k, v in t2.state_dict().items()}}, ckpt)
+    synth = Synthesizer(hp, device=device)
+    with warnings.catch_warnings():     # no centroid clips: vocode needs none
+        warnings.simplefilter("ignore")
+        synth.load(ckpt, bigvgan_checkpoint(model, tmp),
+                   centroid_filelist=os.path.join(tmp, "no_clips.txt"))
+    if synth.bigvgan is None or synth.waveglow is not None:
+        raise AssertionError("Synthesizer.load did not load the BigVGAN checkpoint")
+    voc = synth.bigvgan
+    n_act = sum(isinstance(m, mbv.Activation1d) for m in voc.modules())
+    frames = 600
+    mel = (0.15 * torch.randn(1, 80, frames, generator=g)).numpy()
+    k9.aa_snake.launches = 0
+    wav = synth.vocode(mel)
+    torch.cuda.synchronize()
+    launches = k9.aa_snake.launches
+    shp = synth.hparams
+    bucket = -(-frames // shp.mel_bucket_size) * shp.mel_bucket_size
+    mel_p = torch.nn.functional.pad(torch.from_numpy(mel), (0, bucket - frames),
+                                    value=float(np.log(1e-5))).to(device)
+    row = {"check": "K9_served", "frames": frames, "padded_frames": bucket,
+           "activations": n_act, "launches": launches, "K9_ms": [], "library_ms": []}
+    inner = mbv.aa_snake
+    with torch.no_grad():
+        for _ in range(3):
+            row["K9_ms"].append(cuda_ms(lambda: voc(mel_p), 5))
+            mbv.aa_snake = k9_library
+            try:
+                row["library_ms"].append(cuda_ms(lambda: voc(mel_p), 5))
+                lib = voc(mel_p)[0, :frames * shp.hop_length].cpu().numpy()
+            finally:
+                mbv.aa_snake = inner
+    row["max_abs_diff"] = float(np.abs(wav - lib).max())
+    row["rms"] = float(np.sqrt(np.mean(np.square(wav, dtype=np.float64))))
+    row["share_above_0.99"] = float(np.mean(np.abs(wav) > 0.99))
+    row["fails"] = ([] if launches == n_act == 109 else ["launches"]) + (
+        [] if row["max_abs_diff"] <= K9_WAV_TOL and wav.shape == (frames * shp.hop_length,)
+        else ["wav"])
+    del synth, voc
+    torch.cuda.empty_cache()
+    return row
+
+
+def k9_phase(hp, t2, device, tmp):
+    """K9 against its twin and the library path at each BigVGAN stage of a
+    9.6 s request and at the edge lengths, the stages timed in turns (5
+    rounds), the served path's launches and wav (``k9_served``), and a
+    request's launches summed; rows to ``chiprun_out/chip_smoke_k9.json``.
+    Returns the ``kernels`` entry of K9."""
+    rows = [k9_check(C, L, device, rounds=5) for C, L in K9_STAGES]
+    rows += [k9_check(C, L, device) for C, L in K9_EDGES]
+    for row in rows:
+        print(json.dumps({k: v for k, v in row.items() if not k.endswith("_all")}), flush=True)
+    served = k9_served(hp, t2, device, tmp)
+    print(json.dumps(served), flush=True)
+    n = {shape: 18 for shape in K9_STAGES}
+    n[K9_STAGES[-1]] += 1
+    total = {"check": "K9_request", "launches": served["launches"]}
+    for k in ("K9_ms", "plain_ms", "library_ms", "bound_ms"):
+        total[k] = sum(r[k] * n[(r["C"], r["L"])] for r in rows[:len(K9_STAGES)])
+    total["roofline_pct"] = 100.0 * total["bound_ms"] / total["K9_ms"]
+    print(json.dumps(total), flush=True)
+    rows += [served, total]
+    with open(os.path.join(OUT_DIR, "chip_smoke_k9.json"), "w") as f:
+        json.dump(rows, f, indent=1)
+    failed = [r for r in rows if r.get("fails")]
+    if failed:
+        raise AssertionError(f"{len(failed)} K9 check(s) failed: "
+                             f"{[(r['check'], r.get('C'), r.get('L'), r['fails']) for r in failed]}")
+    return {"name": "aa_snake_kernel", "route": "cuda",
+            "source": "tacotron2_vae_torch/csrc/aa_snake.cu",
+            "replaces": "none: BigVGAN's Activation1d (no TPU counterpart)",
+            "launches": served["launches"],
+            "max_abs_err": max(r["err"] for r in rows if r["check"] == "K9"),
+            "ms": total["K9_ms"], "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+            "bound_by": rows[0]["bound_by"], "library_ms": total["library_ms"]}
+
+
 # ------------------------------------------------ K1 / K2 (--k12)
 
 # (S, steps) of K1's per-kernel reads: the shape the kernels are tuned at and
@@ -2128,7 +2340,7 @@ def tp_waveglow_cli(model, hp, device, tmp):
     ckpt = os.path.join(tmp, "tp_t2.pt")
     torch.save({"state_dict": {k: v.cpu() for k, v in model.state_dict().items()}}, ckpt)
     synth = Synthesizer(hp, device=device)
-    synth.load(ckpt, waveglow_path=pkl, centroid_filelist=os.path.join(tmp, "none.txt"))
+    synth.load(ckpt, pkl, centroid_filelist=os.path.join(tmp, "none.txt"))
     mel = np.random.RandomState(SEED).randn(1, hp.n_mel_channels, WG_MEL_FRAMES) - 4.0
     wav = synth.vocode(mel.astype(np.float32))
     row = {"phase": "train_waveglow_cli", "B": B, "segment": n, "steps": steps,
@@ -2516,7 +2728,7 @@ def serve_phase(model, hp, device, tmp):
     results = serve_requests(synth, hp, tmp, ref, "griffin_lim")
     del synth
     synth = Synthesizer(hp, device=device)
-    synth.load(ckpt, waveglow_path=wg_path, centroid_filelist=manifest)
+    synth.load(ckpt, wg_path, centroid_filelist=manifest)
     if synth.waveglow_cfg != wg.cfg or synth.waveglow is None:
         raise AssertionError("the WaveGlow pickle was not adopted")
     for dtype in (None, torch.bfloat16):
@@ -2921,6 +3133,7 @@ def main() -> int:
     names = (["reshape_probe"] if "--k56" in sys.argv[1:] else
              ["decoder_loop", "stft_mel"] if "--k12" in sys.argv[1:] else
              ["encoder_lstm"] if "--k78" in sys.argv[1:] else
+             ["aa_snake"] if "--k9" in sys.argv[1:] else
              ["decoder_loop", "stft_mel", "teacher_fwd", "teacher_bwd", "encoder_lstm"]
              if "--fp16" in sys.argv[1:]
              else ["stft_mel", "teacher_fwd", "teacher_bwd", "encoder_lstm"] if "--tp" in sys.argv[1:]
@@ -2936,6 +3149,17 @@ def main() -> int:
 
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # the default; K6's yardsticks need it
+    if "--k9" in sys.argv[1:]:  # BigVGAN's activation kernel alone: checks and timings
+        hp = create_hparams()
+        with tempfile.TemporaryDirectory() as tmp:
+            k9 = k9_phase(hp, random_model(hp, device), device, tmp)
+        total = time.perf_counter() - t0
+        print(f"chip_smoke --k9: {total:.1f} s in all | {card}", flush=True)
+        print(json.dumps({"kernels": [k9]}), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     if "--k56" in sys.argv[1:]:  # the probe kernels' checks and timings alone
         k56_phase(device)
         probe_entry()

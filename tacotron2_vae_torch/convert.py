@@ -6,7 +6,9 @@ hold) into a ``state_dict`` for ``models.tacotron2.Tacotron2`` with the
 reference names; ``to_jax_params`` is its inverse.  ``from_jax_waveglow``
 and ``to_jax_waveglow`` do the same for ``models.waveglow.WaveGlow``, and
 ``from_reference_waveglow`` reads an NVIDIA WaveGlow checkpoint (a state
-dict, or a whole pickled model) by folding its weight norm.  Layouts:
+dict, or a whole pickled model) by folding its weight norm;
+``from_bigvgan_checkpoint`` reads a BigVGAN generator checkpoint in its
+published layout the same way.  Layouts:
 
   linear   JAX w (in, out)            <-> torch weight (out, in)
   conv1d   JAX w (K, in, out)         <-> torch weight (out, in, K)
@@ -268,20 +270,24 @@ def fold_weight_norm(sd) -> dict:
     return out
 
 
-def _load_reference_waveglow(path: str) -> dict:
-    """The state dict of an NVIDIA WaveGlow checkpoint: a plain state dict,
-    ``{"state_dict": ...}``, or a whole pickled model (``{"model": ...}``).
-    A pickled model names NVIDIA's ``glow`` module; stub classes stand in
-    for it while unpickling (unpickling calls no ``__init__``)."""
+def read_torch_checkpoint(path: str):
+    """``torch.load`` of a reference checkpoint.  A whole pickled WaveGlow
+    model names NVIDIA's ``glow`` module; stub classes stand in for it while
+    unpickling (unpickling calls no ``__init__``)."""
     stub = types.ModuleType("glow")
     for cls in ("WaveGlow", "WN", "Invertible1x1Conv", "WaveGlowLoss"):
         setattr(stub, cls, type(cls, (torch.nn.Module,), {}))
     added = sys.modules.setdefault("glow", stub) is stub
     try:
-        blob = torch.load(path, map_location="cpu", weights_only=False)
+        return torch.load(path, map_location="cpu", weights_only=False)
     finally:
         if added:
             del sys.modules["glow"]
+
+
+def _waveglow_state(blob) -> dict:
+    """The state dict of an NVIDIA WaveGlow checkpoint: a plain state dict,
+    ``{"state_dict": ...}``, or a whole pickled model (``{"model": ...}``)."""
     if isinstance(blob, dict) and "model" in blob:
         blob = blob["model"]
     elif isinstance(blob, dict) and "state_dict" in blob:
@@ -289,10 +295,25 @@ def _load_reference_waveglow(path: str) -> dict:
     return blob.state_dict() if hasattr(blob, "state_dict") else blob
 
 
-def from_reference_waveglow(path_or_sd) -> dict:
-    """NVIDIA WaveGlow checkpoint (a path, or its state dict) -> the port's
-    state_dict in float32.  The names are the same; weight norm is folded."""
-    sd = _load_reference_waveglow(path_or_sd) if isinstance(path_or_sd, str) else path_or_sd
+def _folded(sd: dict) -> dict:
     sd = {k: v.detach().cpu().float().numpy() if isinstance(v, torch.Tensor) else v
           for k, v in sd.items()}
     return {k: _t(v) for k, v in fold_weight_norm(sd).items()}
+
+
+def from_reference_waveglow(checkpoint) -> dict:
+    """NVIDIA WaveGlow checkpoint (a path, or what ``read_torch_checkpoint``
+    read from one) -> the port's state_dict in float32.  The names are the
+    same; weight norm is folded."""
+    if isinstance(checkpoint, str):
+        checkpoint = read_torch_checkpoint(checkpoint)
+    return _folded(_waveglow_state(checkpoint))
+
+
+def from_bigvgan_checkpoint(blob) -> dict:
+    """A BigVGAN generator checkpoint as published (``{"generator":
+    state_dict}``, or the state dict itself) -> the state dict of
+    ``models.bigvgan.BigVGAN`` in float32: each ``weight_g``/``weight_v``
+    pair folded into a ``weight``; the SnakeBeta ``alpha``/``beta`` and the
+    anti-aliasing ``filter`` buffers as stored."""
+    return _folded(blob.get("generator", blob))

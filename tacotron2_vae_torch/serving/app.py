@@ -26,7 +26,12 @@ needs a card, so ``main`` builds it (``synthesizer`` stays None until then;
 tests set it).
 
     python -m tacotron2_vae_torch.serving.app --checkpoint_path ckpt.pt \\
-        [--waveglow_path waveglow.pkl] [--port 51000] [--device cuda]
+        [--vocoder_path waveglow.pkl | g_05000000] [--port 51000] [--device cuda]
+
+``--vocoder_path`` (alias ``--waveglow_path``) names a WaveGlow pickle or
+``.pt``, or a BigVGAN generator checkpoint in its published layout with
+its ``config.json`` beside it (``Synthesizer.load``); without one the app
+vocodes by Griffin-Lim.
 """
 
 from __future__ import annotations
@@ -264,7 +269,8 @@ def make_server(port: int) -> ThreadingHTTPServer:
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--checkpoint_path", required=True)
-    parser.add_argument("--waveglow_path", default=None)
+    parser.add_argument("--vocoder_path", "--waveglow_path", dest="vocoder_path", default=None,
+                        help="a WaveGlow pickle or .pt, or a BigVGAN generator checkpoint")
     parser.add_argument("--port", default=51000, type=int)
     # the reference's flags, accepted and ignored as the JAX CLI does
     parser.add_argument("--debug", default=False)
@@ -285,7 +291,7 @@ def main(argv=None):
     _window_s = args.batch_window_ms / 1000.0
     synthesizer = Synthesizer(device=args.device)
     if os.path.exists(args.checkpoint_path):
-        synthesizer.load(args.checkpoint_path, args.waveglow_path)
+        synthesizer.load(args.checkpoint_path, args.vocoder_path)
     else:
         print(f" [!] load_path not found: {args.checkpoint_path}")
 

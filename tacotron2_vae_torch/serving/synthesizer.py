@@ -10,18 +10,25 @@ checkpoint), and interpolation between two centroids.  The decoder loop runs
 as kernel K1 on the card for batches of 1 to 8 rows.
 
 Runs on CUDA unless ``device="cpu"`` is given; without a card it raises.
-Vocoding is WaveGlow when ``load`` is given a ``waveglow_path`` (a
-self-describing ``{"waveglow", "config"}`` pickle of the JAX package's
-params, or a reference NVIDIA ``.pt``), else Griffin-Lim; either runs on
-the postnet mel (``vocode_prepostnet=True`` for the reference's
-pre-postnet mel).  ``vocoder_dtype = torch.bfloat16`` runs WaveGlow's
-WaveNet convolutions in bf16 (float32 by default, as the JAX package).
+``load``'s ``vocoder_path`` names the vocoder, told apart by what the file
+holds: WaveGlow (a self-describing ``{"waveglow", "config"}`` pickle of the
+JAX package's params, or a reference NVIDIA ``.pt``) or BigVGAN (a
+generator checkpoint in its published layout, ``{"generator":
+state_dict}`` with weight norm, and its ``config.json`` beside it or a
+``"config"`` entry); without one, Griffin-Lim.  Each runs on the postnet
+mel (``vocode_prepostnet=True`` for the reference's pre-postnet mel).
+``vocoder_dtype = torch.bfloat16`` runs WaveGlow's WaveNet convolutions
+on bf16 operands (float32 by default); BigVGAN runs in float32 only.
 
 While ``utils.profiling`` records, a batch's work is in spans:
 ``batch.styles`` (each reference clip's ``style.ref``: wav read, K2, VAE),
 ``mel`` (``mel.text``, then ``Tacotron2.infer``'s ``mel.encoder``,
 ``mel.decode`` and ``mel.postnet``, then ``mel.fetch``, the copies to the
 host), and per item ``vocode`` and ``wav.write``, each with its request id.
+BigVGAN's generator is the span ``vocode.bigvgan``, which carries a CUDA
+event pair around it on a card (placed on the host clock: ``device``,
+``device_ms``) and the padded mel's ``frames``; the counter
+``bigvgan.audio_samples`` sums the samples ``vocode`` returned from it.
 
     python -m tacotron2_vae_torch.serving.synthesizer --load_path ckpt.pt \\
         --text "..." [--ref_audio ref.wav | --ratios 1,0,0,0]
@@ -31,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import glob
+import json
 import os
 import pickle
 import warnings
@@ -40,9 +48,11 @@ import numpy as np
 import torch
 
 from ..config import create_hparams
-from ..convert import from_jax_params, from_jax_waveglow, from_reference_waveglow
+from ..convert import (from_bigvgan_checkpoint, from_jax_params, from_jax_waveglow,
+                       from_reference_waveglow, read_torch_checkpoint)
 from ..dsp import TacotronSTFT, griffin_lim, load_wav, save_wav
 from ..dsp.stft import dynamic_range_decompression
+from ..models.bigvgan import BigVGAN, BigVGANConfig
 from ..models.tacotron2 import Tacotron2, compute_dtype
 from ..models.waveglow import WaveGlow, WaveGlowConfig
 from ..ops.layers import linear, set_cudnn_flags
@@ -65,6 +75,7 @@ class Synthesizer:
         self.model = None
         self.waveglow = None
         self.waveglow_cfg = WaveGlowConfig(n_mel_channels=hp.n_mel_channels)
+        self.bigvgan = None
         self.vocoder_dtype = None
         self.centroids_loaded = False
         self._gen = torch.Generator().manual_seed(hp.seed)
@@ -80,25 +91,36 @@ class Synthesizer:
             raise ValueError(f"{sr} SR doesn't match target {self.hparams.sampling_rate} SR")
         return self.stft.mel_spectrogram(audio[None] / self.hparams.max_wav_value)
 
-    def load(self, checkpoint_path: str, waveglow_path: str | None = None,
+    def load(self, checkpoint_path: str, vocoder_path: str | None = None,
              centroid_filelist: str | None = None):
-        """Load model weights, WaveGlow (optional) and per-emotion centroids.
-        The checkpoint is a pickle of the JAX package's numpy params
-        (``{"params", "model_state"}``, as ``tools/convert_torch_ckpt.py``
-        writes) or a reference torch checkpoint (a state_dict, or a dict
-        holding one under ``"state_dict"``).  A WaveGlow pickle's own config
-        wins over ``waveglow_cfg``."""
+        """Load model weights, a vocoder (optional: WaveGlow or BigVGAN, see
+        the module note) and per-emotion centroids.  The checkpoint is a
+        pickle of the JAX package's numpy params (``{"params",
+        "model_state"}``, as ``tools/convert_torch_ckpt.py`` writes) or a
+        reference torch checkpoint (a state_dict, or a dict holding one
+        under ``"state_dict"``).  A WaveGlow pickle's own config wins over
+        ``waveglow_cfg``."""
         model = Tacotron2(self.hparams)
         model.load_state_dict(_load_state_dict(checkpoint_path, self.hparams))
         self.model = model.to(self.device).eval().requires_grad_(False)
-        self.waveglow = None
-        if waveglow_path:
-            sd, cfg = _load_waveglow(waveglow_path)
-            self.waveglow_cfg = cfg or self.waveglow_cfg
-            wg = WaveGlow(self.waveglow_cfg)
-            wg.load_state_dict(sd)
-            self.waveglow = wg.to(self.device).eval().requires_grad_(False)
-            self._waveglow_w_inv = self.waveglow.inverse_weights()
+        self.waveglow = self.bigvgan = None
+        if vocoder_path:
+            kind, sd, cfg = _load_vocoder(vocoder_path)
+            if kind == "bigvgan":
+                hp = self.hparams
+                if (cfg.num_mels, cfg.hop_size) != (hp.n_mel_channels, hp.hop_length):
+                    raise ValueError(f"BigVGAN takes {cfg.num_mels} mels at hop {cfg.hop_size}; "
+                                     f"the model makes {hp.n_mel_channels} at hop "
+                                     f"{hp.hop_length}")
+                voc = BigVGAN(cfg)
+                voc.load_state_dict(sd)
+                self.bigvgan = voc.to(self.device).eval().requires_grad_(False)
+            else:
+                self.waveglow_cfg = cfg or self.waveglow_cfg
+                wg = WaveGlow(self.waveglow_cfg)
+                wg.load_state_dict(sd)
+                self.waveglow = wg.to(self.device).eval().requires_grad_(False)
+                self._waveglow_w_inv = self.waveglow.inverse_weights()
         if centroid_filelist is None:
             centroid_filelist = os.path.join(
                 "web", "static", "uploads", "koemo_spk_emo_all_test.txt")
@@ -317,23 +339,40 @@ class Synthesizer:
 
     @torch.no_grad()
     def vocode(self, mel: np.ndarray, sigma: float = 0.666) -> np.ndarray:
-        """mel (1, n_mel, T) -> waveform by WaveGlow, or by Griffin-Lim (30
-        iterations) when no vocoder is loaded.
+        """mel (1, n_mel, T) -> waveform by WaveGlow or BigVGAN, or by
+        Griffin-Lim (30 iterations) when no vocoder is loaded.
 
-        WaveGlow gets the mel padded with log-silence to a multiple of
-        ``mel_bucket_size`` frames (as the JAX package pads it) and noise
-        from a device generator seeded from the Synthesizer's; the audio is
-        trimmed to T * hop_length samples."""
+        A vocoder gets the mel padded with log-silence to a multiple of
+        ``mel_bucket_size`` frames (as the JAX package pads it), WaveGlow
+        noise from a device generator seeded from the Synthesizer's
+        (BigVGAN is deterministic and draws none); the audio is trimmed to
+        T * hop_length samples."""
         hp = self.hparams
-        if self.waveglow is not None:
+        if self.waveglow is not None or self.bigvgan is not None:
             T = mel.shape[2]
             bucket = max(hp.mel_bucket_size, 1)
-            mel_p = np.pad(np.asarray(mel, np.float32),
-                           ((0, 0), (0, 0), (0, -(-T // bucket) * bucket - T)),
-                           constant_values=np.log(1e-5))
-            gen = torch.Generator(device=self.device).manual_seed(self._seed())
-            wav = self.waveglow.infer(torch.from_numpy(mel_p).to(self.device), sigma, gen,
-                                      self.vocoder_dtype, self._waveglow_w_inv)
+            mel_p = torch.from_numpy(np.pad(
+                np.asarray(mel, np.float32), ((0, 0), (0, 0), (0, -(-T // bucket) * bucket - T)),
+                constant_values=np.log(1e-5))).to(self.device)
+            if self.bigvgan is not None:
+                if self.vocoder_dtype not in (None, torch.float32):
+                    raise ValueError(f"BigVGAN runs in float32, not {self.vocoder_dtype}")
+                with profiling.span("vocode.bigvgan"):
+                    events = None
+                    if profiling.recording() and mel_p.is_cuda:
+                        events = (torch.cuda.Event(enable_timing=True),
+                                  torch.cuda.Event(enable_timing=True))
+                        events[0].record()
+                    wav = self.bigvgan(mel_p)
+                    if events is not None:
+                        events[1].record()
+                        profiling.annotate(device_events=events)
+                    profiling.annotate(frames=int(mel_p.shape[2]))
+                profiling.count("bigvgan.audio_samples", T * hp.hop_length)
+            else:
+                gen = torch.Generator(device=self.device).manual_seed(self._seed())
+                wav = self.waveglow.infer(mel_p, sigma, gen, self.vocoder_dtype,
+                                          self._waveglow_w_inv)
             return wav[0, :T * hp.hop_length].cpu().numpy()
         mel_lin = dynamic_range_decompression(
             torch.as_tensor(mel, device=self.device))[0]
@@ -383,17 +422,31 @@ def _load_state_dict(path: str, hp) -> dict:
     return blob.get("state_dict", blob)
 
 
-def _load_waveglow(path: str):
-    """(state_dict, WaveGlowConfig or None).  A pickle holds the JAX
-    package's params under ``"waveglow"`` (float16 storage is cast to
-    float32) and may carry its config under ``"config"``; anything else is
-    read as a reference NVIDIA checkpoint."""
+def _load_vocoder(path: str):
+    """("waveglow" or "bigvgan", state_dict, config or None) by what the file
+    holds.  A pickle holds the JAX package's WaveGlow params under
+    ``"waveglow"`` (float16 storage is cast to float32) and may carry its
+    config under ``"config"``.  A torch checkpoint holding ``"generator"``
+    is BigVGAN's, whose config is its ``"config"`` entry or the
+    ``config.json`` beside it (as BigVGAN's own inference script reads it);
+    any other is read as a reference NVIDIA WaveGlow checkpoint."""
     if path.endswith((".pkl", ".pickle")):
         with open(path, "rb") as f:
             blob = pickle.load(f)
         cfg = WaveGlowConfig(**blob["config"]) if "config" in blob else None
-        return from_jax_waveglow(blob["waveglow"]), cfg
-    return from_reference_waveglow(path), None
+        return "waveglow", from_jax_waveglow(blob["waveglow"]), cfg
+    blob = read_torch_checkpoint(path)
+    if isinstance(blob, dict) and "generator" in blob:
+        cfg = blob.get("config")
+        if cfg is None:
+            cfg_path = os.path.join(os.path.dirname(os.path.abspath(path)), "config.json")
+            if not os.path.exists(cfg_path):
+                raise ValueError(f"the BigVGAN checkpoint {path!r} has no config: put its "
+                                 f"config.json beside it")
+            with open(cfg_path, encoding="utf-8") as f:
+                cfg = json.load(f)
+        return "bigvgan", from_bigvgan_checkpoint(blob), BigVGANConfig.from_dict(cfg)
+    return "waveglow", from_reference_waveglow(blob), None
 
 
 def _str2bool(v) -> bool:
@@ -403,7 +456,8 @@ def _str2bool(v) -> bool:
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--load_path", required=True)
-    parser.add_argument("--waveglow_path", default=None)
+    parser.add_argument("--vocoder_path", "--waveglow_path", dest="vocoder_path", default=None,
+                        help="a WaveGlow pickle or .pt, or a BigVGAN generator checkpoint")
     parser.add_argument("--sample_path", default="samples")
     parser.add_argument("--text", required=True)
     parser.add_argument("--ref_audio", default=None)
@@ -414,7 +468,7 @@ def main(argv=None):
     hp = None if config.is_korean else create_hparams(
         "text_cleaners=['english_cleaners'],n_symbols=65")
     synth = Synthesizer(hp)
-    synth.load(config.load_path, config.waveglow_path)
+    synth.load(config.load_path, config.vocoder_path)
     out = os.path.join(config.sample_path, "synth.wav")
     synth.synthesize(config.text, out, condition_on_ref=config.ref_audio is not None,
                      ref_audio=config.ref_audio,

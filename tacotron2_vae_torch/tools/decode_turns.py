@@ -141,7 +141,7 @@ def child(tree: str, k1_only: bool = False):
     with tempfile.TemporaryDirectory() as tmp:
         ckpt, wg_path, manifest, ref = cs.serve_files(model, wg, tmp)
         synth = Synthesizer(hp, device=device)
-        synth.load(ckpt, waveglow_path=wg_path, centroid_filelist=manifest)
+        synth.load(ckpt, wg_path, centroid_filelist=manifest)
         row["serve"] = []
         for dtype in (None, torch.bfloat16):
             synth.vocoder_dtype = dtype

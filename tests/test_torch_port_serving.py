@@ -147,7 +147,7 @@ def test_vocode_with_waveglow_and_synthesizer_needs_cuda(checkpoint):
 
     _waveglow_pickle(tmp / "wg.pkl")
     synth = synth_mod.Synthesizer(create_hparams(TINY), device="cpu")
-    synth.load(str(pkl), waveglow_path=str(tmp / "wg.pkl"), centroid_filelist=str(manifest))
+    synth.load(str(pkl), vocoder_path=str(tmp / "wg.pkl"), centroid_filelist=str(manifest))
     mel = np.random.RandomState(0).randn(1, 80, 70).astype(np.float32)
     wav = synth.vocode(mel)
     assert wav.shape == (70 * hp.hop_length,) and np.isfinite(wav).all()
@@ -208,7 +208,7 @@ def test_waveglow_pickle_config_wins_and_float16_is_cast(checkpoint):
     params = _waveglow_pickle(tmp / "wg16.pkl", np.float16, seed=3)
     synth = synth_mod.Synthesizer(create_hparams(TINY), device="cpu")
     assert synth.waveglow_cfg == WaveGlowConfig()
-    synth.load(str(pkl), waveglow_path=str(tmp / "wg16.pkl"), centroid_filelist=str(manifest))
+    synth.load(str(pkl), vocoder_path=str(tmp / "wg16.pkl"), centroid_filelist=str(manifest))
     assert synth.waveglow_cfg == WaveGlowConfig(**WG_CFG_ARGS)
     sd = synth.waveglow.state_dict()
     assert all(v.dtype == torch.float32 for v in sd.values())
@@ -226,7 +226,7 @@ def test_vocode_matches_jax_synthesizer(checkpoint):
 
     _waveglow_pickle(tmp / "wg_parity.pkl", seed=4)
     ours = synth_mod.Synthesizer(create_hparams(TINY), device="cpu")
-    ours.load(str(pkl), waveglow_path=str(tmp / "wg_parity.pkl"),
+    ours.load(str(pkl), vocoder_path=str(tmp / "wg_parity.pkl"),
               centroid_filelist=str(manifest))
     ref = JaxSynthesizer(jax_hparams(TINY))
     ref.load(str(pkl), str(tmp / "wg_parity.pkl"), centroid_filelist=str(manifest))

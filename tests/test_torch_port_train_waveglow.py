@@ -282,7 +282,7 @@ def test_cli_resumes_the_stream_exports_and_both_synthesizers_vocode(corpus, tmp
     none = str(tmp_path / "none.txt")
     ours = Synthesizer(create_hparams(TINY), device="cpu")
     with pytest.warns(UserWarning, match="Centroid"):
-        ours.load(str(ckpt), waveglow_path=str(tmp_path / "wg16.pkl"), centroid_filelist=none)
+        ours.load(str(ckpt), vocoder_path=str(tmp_path / "wg16.pkl"), centroid_filelist=none)
     ref = JaxSynthesizer(jax_hparams(TINY))
     with pytest.warns(UserWarning, match="Centroid"):
         ref.load(str(ckpt), str(tmp_path / "wg16.pkl"), centroid_filelist=none)
