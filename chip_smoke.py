@@ -1029,12 +1029,19 @@ def kernel_breakdown(fn, steps):
     return out
 
 
+# K4's att_bwd<T, phase>: its phase argument (kCoef, kChain, kAccum)
+ATT_BWD_PHASES = ("coef", "chain", "accum")
+
+
 def short_name(key):
     """A kernel's name from a profiler key: no namespace, template or
-    arguments."""
+    arguments; K4's ``att_bwd`` keeps its phase (``att_bwd<chain>``)."""
     import re
 
     name = re.sub(r"^void |\(anonymous namespace\)::", "", key)
+    phase = re.match(r"att_bwd<[^<>]*, (\d+)>", name)
+    if phase:
+        return f"att_bwd<{ATT_BWD_PHASES[int(phase.group(1))]}>"
     return re.split(r"[(<]", name)[0].split("::")[-1] or key[:40]
 
 
@@ -1047,11 +1054,44 @@ def us_by_kernel(prof):
     return out
 
 
+def k4_timed(dec, B, S, T, device):
+    """K4 at (B, S, T), bf16 with dropout, on K3's forward: its time a
+    call, its bound and its µs a step by kernel (the three phases of
+    ``att_bwd`` apart)."""
+    import torch
+    from tacotron2_vae_torch.ops import teacher_fwd as tf
+
+    w, pn, mem, pm, add, masks, dys = k34_inputs(dec, B, S, T, None, torch.bfloat16, True,
+                                                 device)
+    ys, res = tf.teacher_fwd(w, pn, mem, pm, add, masks)
+    w_cum_prev = torch.cat([torch.zeros_like(ys[2][:1]), torch.cumsum(ys[2], 0)[:-1]])
+    args = (w, mem, pm, masks, dys, ys, res, w_cum_prev.contiguous())
+
+    def bwd():
+        return tf.teacher_bwd(*args)
+
+    row = {"chunk": tf.bwd_chunk(T, B, S, dec.hp.attention_rnn_dim, dec.hp.attention_dim,
+                                 dec.hp.attention_location_n_filters,
+                                 dec.hp.attention_location_kernel_size)}
+    row["K4_ms"] = cuda_ms(bwd, 3)
+    row["K4_bound_ms"], row["K4_bound_by"] = k4_bound(w, B, S, T, "bfloat16", masks)
+    row["K4_us_per_step_by_kernel"] = kernel_breakdown(bwd, T)
+    row["att_bwd_us_per_step"] = sum(v for k, v in row["K4_us_per_step_by_kernel"].items()
+                                     if k.startswith("att_bwd"))
+    return row
+
+
+# train_fixed_shapes' batch shape: K3/K4 checked and K4 timed there too
+K34_FIXED = (64, 384, 1344)
+
+
 def k34_phase(model, device, dtypes=K34_DTYPES):
     """K3 and K4 against their twins at every case, dtype of ``dtypes`` and
     dropout setting; the full-width case with dropout is timed in bf16 (with
     the per-kernel breakdown: ``report["row"]``) and float16
-    (``report["row_float16"]``)."""
+    (``report["row_float16"]``); with bf16 among ``dtypes``, K3 and K4
+    against their twins at ``K34_FIXED`` (bf16, dropout) by the same limits
+    too, and K4 timed there (``report["row_fixed"]``)."""
     rows, failed = [], []
     report = {}
     for B, S, T, lengths in K34_CASES:
@@ -1068,6 +1108,14 @@ def k34_phase(model, device, dtypes=K34_DTYPES):
                     report["row" if dtype_name == "bfloat16" else "row_float16"] = row
                 for k in ("K3", "K4"):
                     report[k] = max(report.get(k, 0.0), row[f"{k}_max_abs_err"])
+    if "bfloat16" in dtypes:
+        B, S, T = K34_FIXED
+        row = k34_check(model.decoder, B, S, T, None, "bfloat16", True, device, timed=False)
+        row.update(k4_timed(model.decoder, B, S, T, device))
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        failed += [row] if row["fails"] else []
+        report["row_fixed"] = row
     if failed:
         raise AssertionError(f"{len(failed)} K3/K4 check(s) disagree with the twins: "
                              f"{[(r['dtype'], r['B'], r['dropout'], r['fails']) for r in failed]}")

@@ -471,6 +471,7 @@ struct GraphKey {
 struct GraphEntry {
   GraphKey key;
   cudaGraphExec_t exec;
+  long long work;  // what the captured loop's enqueue counted (launch_loop)
 };
 struct GraphCache {
   std::mutex mu;
@@ -515,13 +516,28 @@ cudaError_t capture(F&& enqueue, cudaGraph_t* g) {
 // (a training loop's tensors come back at shifting addresses) are patched
 // into it: the loop is captured again and the executable graph updated in
 // place, with no new instantiation.  Sizes not seen among the last kGraphs
-// are captured and instantiated in place of the oldest.
+// are captured and instantiated in place of the oldest.  An enqueue that
+// returns a count of the work it launched (K4: the reverse steps of its
+// coefficient launches) has it kept with its graph; *work gets the count of
+// the loop this call ran, replayed or not (0 for an enqueue that returns
+// nothing, or on an error).
 template <typename F>
 cudaError_t launch_loop(F&& enqueue, bool graph, GraphCache& cache, const GraphKey& key,
-                        cudaStream_t st) {
+                        cudaStream_t st, long long* work = nullptr) {
+  long long ran = 0;
+  const auto enq = [&](cudaStream_t s) {
+    if constexpr (std::is_void_v<decltype(enqueue(s))>)
+      enqueue(s);
+    else
+      ran = enqueue(s);
+  };
+  const auto done = [&](cudaError_t e) {
+    if (work != nullptr) *work = e == cudaSuccess ? ran : 0;
+    return e;
+  };
   if (!graph) {
-    enqueue(st);
-    return cudaGetLastError();
+    enq(st);
+    return done(cudaGetLastError());
   }
   std::lock_guard<std::mutex> lock(cache.mu);
   auto& es = cache.entries;
@@ -530,7 +546,10 @@ cudaError_t launch_loop(F&& enqueue, bool graph, GraphCache& cache, const GraphK
   const bool seen = it != es.end();
   if (seen) {
     std::rotate(es.begin(), it, it + 1);
-    if (es.front().key.ptrs == key.ptrs) return cudaGraphLaunch(es.front().exec, st);
+    if (es.front().key.ptrs == key.ptrs) {
+      ran = es.front().work;
+      return done(cudaGraphLaunch(es.front().exec, st));
+    }
   }
   const auto t0 = std::chrono::steady_clock::now();
   const auto built = [&] {
@@ -539,16 +558,17 @@ cudaError_t launch_loop(F&& enqueue, bool graph, GraphCache& cache, const GraphK
                           .count();
   };
   cudaGraph_t g = nullptr;
-  cudaError_t err = capture(enqueue, &g);
+  cudaError_t err = capture(enq, &g);
   if (err == cudaSuccess && seen) {
     // an update changes the launches to come, not one already in flight
     cudaGraphExecUpdateResultInfo info;
     if (cudaGraphExecUpdate(es.front().exec, g, &info) == cudaSuccess) {
       cudaGraphDestroy(g);
       es.front().key.ptrs = key.ptrs;
+      es.front().work = ran;
       ++cache.updates;
       built();
-      return cudaGraphLaunch(es.front().exec, st);
+      return done(cudaGraphLaunch(es.front().exec, st));
     }
     cudaGetLastError();  // the topology changed: instantiate anew below
     cudaGraphExecDestroy(es.front().exec);
@@ -560,7 +580,7 @@ cudaError_t launch_loop(F&& enqueue, bool graph, GraphCache& cache, const GraphK
   built();
   if (err != cudaSuccess) {
     if (exec) cudaGraphExecDestroy(exec);
-    return err;
+    return done(err);
   }
   ++cache.captures;
   if ((int)es.size() == kGraphs) {
@@ -568,8 +588,8 @@ cudaError_t launch_loop(F&& enqueue, bool graph, GraphCache& cache, const GraphK
     cudaGraphExecDestroy(es.back().exec);
     es.pop_back();
   }
-  es.insert(es.begin(), {key, exec});
-  return cudaGraphLaunch(exec, st);
+  es.insert(es.begin(), {key, exec, ran});
+  return done(cudaGraphLaunch(exec, st));
 }
 
 // ------------------------------------------------------------ attention
@@ -577,7 +597,9 @@ cudaError_t launch_loop(F&& enqueue, bool graph, GraphCache& cache, const GraphK
 // q partials: qpart[ks][b][a] = sum over k in [ks * kQChunk, ...) of
 // h[b][k] query_w[k][a], for all B rows at once, so query_w is read once a
 // step; the attention CTAs add the cdiv(H, kQChunk) partials in order.
-// Grid (cdiv(A, 32), cdiv(H, kQChunk)), 256 threads, each 4 rows x 2 units.
+// Grid (cdiv(A, 32), cdiv(H, kQChunk), steps), 256 threads, each 4 rows x 2
+// units; grid z takes consecutive steps of h (B, H) into consecutive sets
+// of partials (z = 0 alone in the forward).
 __global__ void __launch_bounds__(256)
 att_query(const float* __restrict__ h, int B, int H, const float* __restrict__ wq, int A,
           float* __restrict__ qpart) {
@@ -585,6 +607,8 @@ att_query(const float* __restrict__ h, int B, int H, const float* __restrict__ w
   __shared__ __align__(16) float ws[kQChunk][32];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int a0 = blockIdx.x * 32, k0 = blockIdx.y * kQChunk;
+  h += (size_t)blockIdx.z * B * H;
+  qpart += (size_t)blockIdx.z * gridDim.y * B * A;
   for (int i = tid; i < 64 * kQChunk; i += 256) {
     const int b = i / kQChunk, k = i % kQChunk;
     hs[k][b] = b < B && k0 + k < H ? h[(size_t)b * H + k0 + k] : 0.0f;
@@ -619,14 +643,17 @@ att_query(const float* __restrict__ h, int B, int H, const float* __restrict__ w
 }
 
 // One attention CTA's share of a row: positions [s0, s0 + n) of the S,
-// in chunks of Sc (the last ones shorter or empty), cluster rank `rank`.
+// in chunks of Sc (the last ones shorter or empty), cluster rank `rank`;
+// or any chunk of Sc positions from s0 (the backward's coefficient pass).
 // Per-chunk arrays are padded to Sc4 positions, A4 units and F4 filters.
 struct AttGeo {
-  int Sc, Sc4, s0, n, A4, F4, nAq, nFq, pad, L, ldt, Lh, ldF;
-  __host__ __device__ AttGeo(const Dims& d, int rank) {
-    Sc = cdiv(d.S, kNC);
+  int Sc, Sc4, s0, n, A4, F4, nAq, nFq, pad, L;
+  __host__ __device__ AttGeo(const Dims& d, int rank)
+      : AttGeo(d, rank * cdiv(d.S, kNC), cdiv(d.S, kNC)) {}
+  __host__ __device__ AttGeo(const Dims& d, int s0_, int Sc_) {
+    Sc = Sc_;
     Sc4 = up4(Sc);
-    s0 = rank * Sc;
+    s0 = s0_;
     n = d.S - s0 < Sc ? d.S - s0 : Sc;
     if (n < 0) n = 0;
     A4 = up4(d.A);
@@ -635,46 +662,30 @@ struct AttGeo {
     nFq = F4 / 4;
     pad = (d.K - 1) / 2;
     L = Sc + d.K - 1;  // positions [s0 - pad, s0 + Sc + pad)
-    ldt = A4 + 4;      // row stride of the backward's (position, unit) tiles
-    Lh = L | 1;        // row stride of the backward's transposed dloc halo
-    ldF = F4 + 4;      // row stride of the backward's transposed loc_dense
   }
 };
 
 // Shared-memory layout of an attention CTA (floats; every array a multiple
-// of 4 floats): a common part, then the forward's or the backward's own.
-// Row strides are padded where a warp reads down a column (epart by nAq +
-// 1, dta by A4 + 4, dlh stored transposed with odd rows) or writes down one
-// (ldwT by F4 + 4), so that its lanes hit distinct banks.  The backward
-// reuses regions whose data is dead: ldwT (built after the energies) takes
-// the place of ldw and locT, the dloc halo dlh that of dta.
+// of 4 floats): a common part, then the forward's own (epart's rows padded
+// by one float: a warp reads down its columns) or, in the backward's
+// coefficient pass, loc (Sc4, F4), which att_loc then fills beside locT.
 struct AttSmem {
   float *q, *v, *wpad, *lw, *ldw, *locT, *e, *slot, *red;  // common
   float *epart, *cpart, *csc;                              // forward
-  float *dta, *dlh, *ldwT, *loc, *dl, *dcx, *wt, *de, *dqc, *dvp, *cred;  // backward
+  float* loc;                                              // backward
   __host__ __device__ static int common_floats(const Dims& d, const AttGeo& g) {
-    return 2 * g.A4 + up4(2 * g.L) + up4(d.K * 2 * d.F) + ldw_region(d, g) + g.Sc4 + 8 + 32;
-  }
-  // ldw (F, A4) and locT (F, Sc4); in the backward also ldwT (A, F4 + 4)
-  __host__ __device__ static int ldw_region(const Dims& d, const AttGeo& g) {
-    const int fwd = d.F * g.A4 + d.F * g.Sc4, bwd = d.A * g.ldF;
-    return fwd > bwd ? fwd : bwd;
+    return 2 * g.A4 + up4(2 * g.L) + up4(d.K * 2 * d.F) + d.F * g.A4 + d.F * g.Sc4 + g.Sc4 +
+           8 + 32;
   }
   __host__ __device__ static int ctx_scratch(const Dims& d) {
     return up4(d.E > 4 * kAttThreads ? d.E : 4 * kAttThreads);
-  }
-  __host__ __device__ static int dta_region(const Dims& d, const AttGeo& g) {
-    const int a = g.Sc4 * g.ldt, h = up4(g.Lh * d.F);
-    return a > h ? a : h;
   }
   __host__ __device__ static int fwd_floats(const Dims& d) {
     const AttGeo g(d, 0);
     return common_floats(d, g) + up4(g.Sc4 * (g.nAq + 1)) + up4(d.E) + ctx_scratch(d);
   }
-  __host__ __device__ static int bwd_floats(const Dims& d) {
-    const AttGeo g(d, 0);
-    return common_floats(d, g) + dta_region(d, g) + g.Sc4 * g.F4 + up4(g.Sc * d.F) + up4(d.E) +
-           2 * g.Sc4 + g.A4 + (g.Sc4 / 4) * g.A4 + 4 * 2 * g.Sc4;
+  __host__ __device__ static int bwd_floats(const Dims& d, const AttGeo& g) {
+    return common_floats(d, g) + g.Sc4 * g.F4;
   }
   __device__ AttSmem(float* sm, const Dims& d, const AttGeo& g, bool bwd) {
     q = sm;
@@ -683,28 +694,18 @@ struct AttSmem {
     lw = wpad + up4(2 * g.L);
     ldw = lw + up4(d.K * 2 * d.F);
     locT = ldw + d.F * g.A4;
-    ldwT = ldw;
-    e = ldw + ldw_region(d, g);
+    e = locT + d.F * g.Sc4;
     slot = e + g.Sc4;
     red = slot + 8;
     float* p = red + 32;
-    epart = cpart = csc = nullptr;
-    dta = dlh = loc = dl = dcx = wt = de = dqc = dvp = cred = nullptr;
-    if (!bwd) {
-      epart = p;
-      cpart = epart + up4(g.Sc4 * (g.nAq + 1));
-      csc = cpart + up4(d.E);
+    epart = cpart = csc = loc = nullptr;
+    if (bwd) {
+      loc = p;
       return;
     }
-    dta = dlh = p;
-    loc = dta + dta_region(d, g);
-    dl = loc + g.Sc4 * g.F4;
-    dcx = dl + up4(g.Sc * d.F);
-    wt = dcx + up4(d.E);
-    de = wt + g.Sc4;
-    dqc = de + g.Sc4;
-    dvp = dqc + g.A4;
-    cred = dvp + (g.Sc4 / 4) * g.A4;
+    epart = p;
+    cpart = epart + up4(g.Sc4 * (g.nAq + 1));
+    csc = cpart + up4(d.E);
   }
 };
 

@@ -16,7 +16,12 @@ itself (``USE_GRAPH``: as a CUDA graph, kept for calls with the same
 arguments; else kernel by kernel); shapes the kernels do not take raise.  On a CPU tensor each runs
 its plain twin below (``teacher_fwd_plain``, ``teacher_bwd_plain``), a port
 of ``decoder_bptt._fwd_impl`` and of the recompute path of
-``decoder_bptt._bwd_rule``.  Launches are counted in ``.launches``.
+``decoder_bptt._bwd_rule``.  Launches are counted in ``.launches``.  K4
+takes the attention backward's carry-independent work off its reverse-time
+chain, chunk by chunk; ``teacher_bwd.coef_steps`` adds up the reverse
+steps whose coefficient pass K4 reports it launched (the counter
+``teacher_bwd.coef_steps`` while ``utils.profiling`` records), T a call
+when every chunk ran it.
 
 Weights (``pack``): ``attn_w`` (P+E+H, 4H) and ``dec_w`` (H+E+H, 4H) in the
 stream dtype (float32, bfloat16 or float16), columns gate-major (i, f, g, o); biases,
@@ -96,6 +101,11 @@ def _lstm_bwd(g, c_prev, dh, dc, H):
     return dg, dct * f
 
 
+def _wide(x):
+    """``x`` in float32, or kept in float64 (the twins' float64 checks)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _energy_terms(w, h_att, w_prev, w_cum, pmem):
     """(loc (B,S,F), tanh argument's tanh (B,S,A)) of one step."""
     loc = loc_conv(w_prev, w_cum, w["loc_w"])
@@ -112,10 +122,10 @@ def teacher_fwd_plain(w, prenet_seq, memory, pmem, add_mask, masks):
     S, E = memory.shape[1:]
     H = w["attn_w"].shape[1] // 4
     sdt = w["attn_w"].dtype
-    wa, wd = w["attn_w"].float(), w["dec_w"].float()
+    wa, wd = _wide(w["attn_w"]), _wide(w["dec_w"])
 
     def z(*s):
-        return torch.zeros(s, dtype=torch.float32, device=memory.device)
+        return _wide(torch.zeros(s, dtype=memory.dtype, device=memory.device))
 
     h_att, c_att, h_dec, c_dec = z(B, H), z(B, H), z(B, H), z(B, H)
     w_prev, w_cum, ctx = z(B, S), z(B, S), z(B, E)
@@ -124,20 +134,20 @@ def teacher_fwd_plain(w, prenet_seq, memory, pmem, add_mask, masks):
         out["c_att"].append(c_att)
         out["c_dec"].append(c_dec)
         x = torch.cat([prenet_seq[t], ctx, h_att], -1)
-        g_att = x.to(sdt).float() @ wa + w["attn_b"]
+        g_att = _wide(x.to(sdt)) @ wa + w["attn_b"]
         h_att, c_att = _lstm_fwd(g_att, c_att, H)
         if masks is not None:
-            h_att, c_att = h_att * masks[0][t].float(), c_att * masks[1][t].float()
+            h_att, c_att = h_att * _wide(masks[0][t]), c_att * _wide(masks[1][t])
         _, ta = _energy_terms(w, h_att, w_prev, w_cum, pmem)
         wt = torch.softmax(ta @ w["v"] + add_mask, dim=1)
         ctx = torch.bmm(wt[:, None, :], memory)[:, 0]
         w_cum = w_cum + wt
         w_prev = wt
         x = torch.cat([h_att, ctx, h_dec], -1)
-        g_dec = x.to(sdt).float() @ wd + w["dec_b"]
+        g_dec = _wide(x.to(sdt)) @ wd + w["dec_b"]
         h_dec, c_dec = _lstm_fwd(g_dec, c_dec, H)
         if masks is not None:
-            h_dec, c_dec = h_dec * masks[2][t].float(), c_dec * masks[3][t].float()
+            h_dec, c_dec = h_dec * _wide(masks[2][t]), c_dec * _wide(masks[3][t])
         for k, v in (("h_dec", h_dec), ("ctx", ctx), ("w", wt), ("g_att", g_att.to(sdt)),
                      ("g_dec", g_dec.to(sdt)), ("h_att", h_att)):
             out[k].append(v)
@@ -146,24 +156,42 @@ def teacher_fwd_plain(w, prenet_seq, memory, pmem, add_mask, masks):
             (s["g_att"], s["g_dec"], s["c_att"], s["c_dec"], s["h_att"]))
 
 
+def _cell_bwd(wx, g, c_prev, dh, dc, mh, mc, H, sdt):
+    """One LSTM cell's backward as the kernels take it: the dropout masks
+    on dh and dc first, dg stored in the stream dtype, then dx = dg . wx^T;
+    returns (dg, dx, dc_prev)."""
+    if mh is not None:
+        dh, dc = dh * _wide(mh), dc * _wide(mc)
+    dg, dc_prev = _lstm_bwd(_wide(g), c_prev, dh, dc, H)
+    dg = dg.to(sdt)
+    return dg, _wide(dg) @ wx.t(), dc_prev
+
+
+def _bwd_setup(w, memory, ys):
+    T, B, S = ys[2].shape
+    E = memory.shape[2]
+    H = w["attn_w"].shape[1] // 4
+    P = w["attn_w"].shape[0] - E - H
+
+    def z(*s):
+        return _wide(torch.zeros(s, dtype=memory.dtype, device=memory.device))
+
+    return T, B, S, E, H, P, w["attn_w"].dtype, _wide(w["attn_w"]), _wide(w["dec_w"]), z
+
+
+def _mask(masks, i, t):
+    return None if masks is None else masks[i][t]
+
+
 def teacher_bwd_plain(w, memory, pmem, masks, dys, ys, resids, w_cum_prev):
     """The reverse-time BPTT in PyTorch (recompute regime), with the
     kernel's casting points.  ``w_cum_prev`` (T, B, S) is the cumulative
     attention before each step."""
     dh_dec_seq, dctx_seq, dw_seq = dys
-    _, _, w_seq = ys
+    w_seq = ys[2]
     g_att_seq, g_dec_seq, c_att_prev, c_dec_prev, h_att_seq = resids
-    T, B, S = w_seq.shape
-    E = memory.shape[2]
-    H = w["attn_w"].shape[1] // 4
-    P = w["attn_w"].shape[0] - E - H
-    sdt = w["attn_w"].dtype
-    wa, wd = w["attn_w"].float(), w["dec_w"].float()
+    T, B, S, E, H, P, sdt, wa, wd, z = _bwd_setup(w, memory, ys)
     v, ldw, qw = w["v"], w["loc_dense_w"], w["query_w"]
-
-    def z(*s):
-        return torch.zeros(s, dtype=torch.float32, device=memory.device)
-
     dh_att_c, dc_att_c, dh_dec_c, dc_dec_c = z(B, H), z(B, H), z(B, H), z(B, H)
     dw_prev_c, dwcum_c, dctx_c = z(B, S), z(B, S), z(B, E)
     dv, dwq, dwld, dpmem = z(*v.shape), z(*qw.shape), z(*ldw.shape), z(B, S, pmem.shape[2])
@@ -172,12 +200,9 @@ def teacher_bwd_plain(w, memory, pmem, masks, dys, ys, resids, w_cum_prev):
         w_prev = w_seq[t - 1] if t else torch.zeros_like(w_seq[0])
         loc, ta = _energy_terms(w, h_att_seq[t], w_prev, w_cum_prev[t], pmem)
 
-        dh_dec, dc_dec = dh_dec_seq[t] + dh_dec_c, dc_dec_c
-        if masks is not None:
-            dh_dec, dc_dec = dh_dec * masks[2][t].float(), dc_dec * masks[3][t].float()
-        dg_dec, dc_dec_c = _lstm_bwd(g_dec_seq[t].float(), c_dec_prev[t], dh_dec, dc_dec, H)
-        dg_dec = dg_dec.to(sdt)
-        dx_dec = dg_dec.float() @ wd.t()
+        dg_dec, dx_dec, dc_dec_c = _cell_bwd(wd, g_dec_seq[t], c_dec_prev[t],
+                                             dh_dec_seq[t] + dh_dec_c, dc_dec_c,
+                                             _mask(masks, 2, t), _mask(masks, 3, t), H, sdt)
         dh_att = dx_dec[:, :H] + dh_att_c
         dctx = dx_dec[:, H:H + E] + dctx_seq[t] + dctx_c
         dh_dec_c = dx_dec[:, H + E:]
@@ -196,12 +221,8 @@ def teacher_bwd_plain(w, memory, pmem, masks, dys, ys, resids, w_cum_prev):
         dfeats = loc_conv_input_grad(dloc, w["loc_w"])
         dw_prev_c, dwcum_c = dfeats[..., 0], dfeats[..., 1] + dwcum_c
 
-        dc_att = dc_att_c
-        if masks is not None:
-            dh_att, dc_att = dh_att * masks[0][t].float(), dc_att * masks[1][t].float()
-        dg_att, dc_att_c = _lstm_bwd(g_att_seq[t].float(), c_att_prev[t], dh_att, dc_att, H)
-        dg_att = dg_att.to(sdt)
-        dx_att = dg_att.float() @ wa.t()
+        dg_att, dx_att, dc_att_c = _cell_bwd(wa, g_att_seq[t], c_att_prev[t], dh_att, dc_att_c,
+                                             _mask(masks, 0, t), _mask(masks, 1, t), H, sdt)
         dctx_c, dh_att_c = dx_att[:, P:P + E], dx_att[:, P + E:]
         for lst, val in zip(streams, (dg_att, dg_dec, dx_att[:, :P], dctx, dloc.to(sdt))):
             lst[t] = val
@@ -265,6 +286,9 @@ Q_CHUNK = 64    # rows of H per query-product partial: kQChunk
 TILE_K = 64     # reduction tile of the 2-byte wgmma products: kTileK
 USE_GRAPH = True  # replay each call's step loop from a CUDA graph (False: the profiler's view)
 GRAPHS = 4        # sets of sizes whose graph is kept, per direction (kGraphs)
+RING_ALIGN = 64   # floats: each array of K4's coefficient ring starts on a multiple (kRingAlign)
+RING_BYTES = 512 << 20  # K4's coefficient ring: the chunk length C is what fits in this
+CHUNKS = (4, 16)  # ... clamped to these (then to T): a step's graph nodes are 5 + 3 / C
 
 
 def cdiv(a: int, b: int) -> int:
@@ -290,6 +314,28 @@ def bwd_work(B, S, E, H, P, A, Fn):
     and a zero row of S."""
     return (B * (2 * H + E), B * H, B * E, B * H, B * H, B * S, B * S, B * A,
             B * CLUSTER * A, B * CLUSTER * Fn * A, S)
+
+
+def bwd_ring(C, B, S, H, A, Fn, K):
+    """Element counts of K4's coefficient ring for chunks of C steps, in
+    the order of ``Ring`` in csrc/teacher_bwd.cu, each rounded up to
+    ``RING_ALIGN``: the att_query partials, ta, M, N (2K taps), loc, de."""
+    cbs = C * B * S
+    parts = (C * cdiv(H, Q_CHUNK) * B * A, cbs * A, cbs * Fn, cbs * 2 * K, cbs * Fn, cbs)
+    return tuple(cdiv(n, RING_ALIGN) * RING_ALIGN for n in parts)
+
+
+def bwd_chunk(T, B, S, H, A, Fn, K):
+    """K4's chunk length: the steps whose coefficients fit ``RING_BYTES``,
+    within ``CHUNKS``, at most T."""
+    step = 4 * sum(bwd_ring(1, B, S, H, A, Fn, K))
+    return min(T, max(CHUNKS[0], min(CHUNKS[1], RING_BYTES // step)))
+
+
+def _ring_tensor(C, B, S, H, A, Fn, K, device):
+    """K4's coefficient ring for chunks of C steps (``bwd_ring``), float32."""
+    return torch.empty(sum(bwd_ring(C, B, S, H, A, Fn, K)), dtype=torch.float32,
+                       device=device)
 
 
 def _run_fwd(w, prenet_seq, memory, pmem, add_mask, masks):
@@ -354,17 +400,22 @@ def _run_bwd(w, memory, pmem, masks, dys, ys, resids, w_cum_prev):
     work = torch.zeros(sum(sizes), **f32).split(sizes)
     tc = sdt != torch.float32
     part = torch.empty(0 if tc else SPLIT * B * max(2 * H + E, P + E + H), **f32)
-    qpart = torch.empty(fwd_scratch(T, B, S, E, H, P, A, tc)["qpart"], **f32)
-    err = _fn("teacher_bwd", "t2v_teacher_bwd", 11, 45)(
-        DTYPES[sdt], T, B, S, E, H, P, A, Fn, K, int(USE_GRAPH),
+    C = bwd_chunk(T, B, S, H, A, Fn, K)
+    ring = _ring_tensor(C, B, S, H, A, Fn, K, dev)
+    steps = ctypes.c_longlong(0)
+    err = _fn("teacher_bwd", "t2v_teacher_bwd", 12, 46)(
+        DTYPES[sdt], T, B, S, E, H, P, A, Fn, K, C, int(USE_GRAPH),
         *(_ptr(w[k]) for k in ("attn_w", "dec_w", "query_w", "loc_w", "loc_dense_w", "v")),
         _ptr(memory), _ptr(pmem), *(_ptr(m) for m in masks),
         *(_ptr(x) for x in named.values()),
         _ptr(dg_att), _ptr(dg_dec), _ptr(dpn), _ptr(dctx), _ptr(dloc), _ptr(dv), _ptr(dwq),
-        _ptr(dwld), _ptr(dpmem), *(_ptr(x) for x in work), _ptr(part), _ptr(qpart),
+        _ptr(dwld), _ptr(dpmem), *(_ptr(x) for x in work), _ptr(part), _ptr(ring),
+        ctypes.c_void_p(ctypes.addressof(steps)),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(err, "t2v_teacher_bwd")
     teacher_bwd.launches += 1
+    teacher_bwd.coef_steps += steps.value
+    profiling.count("teacher_bwd.coef_steps", steps.value)
     return dg_att, dg_dec, dpn, dctx, dloc, dv, dwq, dwld, dpmem
 
 
@@ -440,3 +491,4 @@ def teacher_bwd(w, memory, pmem, masks, dys, ys, resids, w_cum_prev):
 
 teacher_fwd.launches = 0
 teacher_bwd.launches = 0
+teacher_bwd.coef_steps = 0

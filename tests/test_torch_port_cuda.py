@@ -39,7 +39,12 @@ recurrence, by ``chip_smoke.k34_check`` and its limits ``K34_TOL``, at
 widths whose LSTM input sizes (P+E+H = 176, 2H+E = 212) are not multiples
 of the 64-deep wgmma tiles and whose 4H = 288 is not a multiple of the
 64-unit blocks, with B from 1 to the 64-row tile and S split unevenly over
-the attention cluster; two K4 calls bit for bit alike; K3/K4 calls on new
+the attention cluster; K4 at two T off its chunk length against the
+twin, its coefficient pass counted once a reverse step (as K4 reports
+it), the ta its coefficient pass writes equal bit for bit to K3's
+(``tests/k3_ta_probe.cu``), and every kernel it launches named as the
+harness's ``K34_KERNELS`` counts; two K4 calls bit for bit alike; K3/K4
+calls on new
 tensors at cached sizes update their graph in place and match the same
 calls launched kernel by kernel bit for bit; K5 exactly
 (a copy plus one): one flat pass and one grid row per input row, a base
@@ -428,6 +433,151 @@ def test_recurrence_graph_update_reads_new_pointers_on_card(cuda_device, dtype, 
         assert torch.equal(a, b)
 
 
+# T off K4's chunk length at these widths (16 + 5 and 16 + 7).  At T = 21
+# float16 fails the early limit of K4_dctx, 1.298e-5 against 1.25e-5, on
+# this K4 and on the one before it alike (PERF.md, open questions): the
+# case stays, and fails on the card until that limit is settled.
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [21, 23])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_recurrence_backward_chunks_match_twins_on_card(cuda_device, dtype, T):
+    """K4 at a T that is not a multiple of its chunk length C against the
+    step-by-step twin, by ``k34_check``'s limits; K4 reports the
+    coefficient pass launched for every reverse step of every call."""
+    from tacotron2_vae_torch.ops import teacher_fwd as tf
+
+    B, S = 64, 70
+    hp = create_hparams(ODD)
+    model = init_weights(Tacotron2(hp), torch.Generator().manual_seed(0))
+    dec = model.to(cuda_device).eval().requires_grad_(False).decoder
+    C = tf.bwd_chunk(T, B, S, hp.attention_rnn_dim, hp.attention_dim,
+                     hp.attention_location_n_filters, hp.attention_location_kernel_size)
+    assert T % C != 0
+    steps, calls = tf.teacher_bwd.coef_steps, tf.teacher_bwd.launches
+    row = k34_check(dec, B, S, T, None, dtype, True, cuda_device, timed=False)
+    calls = tf.teacher_bwd.launches - calls
+    assert calls >= 2 and tf.teacher_bwd.coef_steps - steps == calls * T
+    assert not row["fails"], {k: row[k] for k in row["fails"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_recurrence_backward_recomputes_the_forward_tanh_on_card(cuda_device, dtype,
+                                                                 monkeypatch, tmp_path):
+    """The ta = tanh(q + loc . loc_dense + pmem) that K4's coefficient pass
+    writes into its ring equals bit for bit the ta of K3's attention
+    (``tests/k3_ta_probe.cu``: K3's att_fwd up to its tanh, on K3's own
+    h_att and alignments): at S = 150 the pass's 64-position CTAs and the
+    forward's S / 4 = 38 split the positions differently.  T <= C, so the
+    ring holds every step after the call."""
+    import ctypes
+    import os
+    import subprocess
+
+    from chip_smoke import k34_inputs
+    from tacotron2_vae_torch.ops import _build
+    from tacotron2_vae_torch.ops import teacher_fwd as tf
+
+    so = str(tmp_path / "libk3_ta_probe.so")
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "k3_ta_probe.cu")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC, "-o", so, src],
+                   check=True, capture_output=True)
+    probe = ctypes.CDLL(so).t2v_k3_ta_probe
+    probe.restype = ctypes.c_int
+    probe.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 12
+
+    B, S, T = 6, 150, 9
+    hp = create_hparams(ODD)
+    H, A, Fn, K = (hp.attention_rnn_dim, hp.attention_dim, hp.attention_location_n_filters,
+                   hp.attention_location_kernel_size)
+    model = init_weights(Tacotron2(hp), torch.Generator().manual_seed(0))
+    dec = model.to(cuda_device).eval().requires_grad_(False).decoder
+    w, pn, mem, pm, add, masks, dys = k34_inputs(dec, B, S, T, None, getattr(torch, dtype),
+                                                 True, cuda_device)
+    ys, res = tf.teacher_fwd(w, pn, mem, pm, add, masks)
+    # the cumulative alignments as K3 adds them up, one step at a time
+    w_cum, cum = [], torch.zeros_like(ys[2][0])
+    for t in range(T):
+        w_cum.append(cum)
+        cum = cum + ys[2][t]
+    w_cum_prev = torch.stack(w_cum)
+    rings = []
+    ring_tensor = tf._ring_tensor
+
+    def keep(*a, **k):
+        rings.append(ring_tensor(*a, **k))
+        return rings[-1]
+
+    monkeypatch.setattr(tf, "_ring_tensor", keep)
+    tf.teacher_bwd(w, mem, pm, masks, dys, ys, res, w_cum_prev)
+    C = tf.bwd_chunk(T, B, S, H, A, Fn, K)
+    assert C == T and len(rings) == 1
+    sizes = tf.bwd_ring(C, B, S, H, A, Fn, K)
+    got = rings[0].split(sizes)[1][:T * B * S * A].view(T, B, S, A)
+
+    h_att = res[4]
+    E = mem.shape[2]
+    P = w["attn_w"].shape[0] - E - H
+    want = torch.full((T, B, S, A), float("nan"), device=cuda_device)
+    qpart = torch.empty(tf.cdiv(H, tf.Q_CHUNK) * B * A, device=cuda_device)
+    zeros = torch.zeros(S, device=cuda_device)
+    ptr = [ctypes.c_void_p(x.data_ptr()) for x in
+           (h_att, w["query_w"], w["loc_w"], w["loc_dense_w"], w["v"], pm, ys[2], w_cum_prev,
+            zeros, qpart, want)]
+    err = probe(T, B, S, E, H, P, A, Fn, K, *ptr,
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    torch.cuda.synchronize()
+    assert err == 0
+    # the probe is the forward's ta: against float64 on the CPU, to float32
+    # rounding
+    w64 = {k: x.double().cpu() for k, x in w.items()}
+    seq, cums, h64, pm64 = (x.double().cpu() for x in (ys[2], w_cum_prev, h_att, pm))
+    plain = torch.stack([tf._energy_terms(w64, h64[t], seq[t - 1] if t else 0 * seq[0],
+                                          cums[t], pm64)[1] for t in range(T)])
+    assert float((want.double().cpu() - plain).abs().max()) <= 1e-5
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_recurrence_backward_kernels_count_in_k34_time_on_card(cuda_device):
+    """Every kernel a K4 call launches (profiled kernel by kernel) has a
+    name that the harness's ``K34_KERNELS`` counts, so that
+    ``k34_roofline.train``'s time holds all of K4: the three phases of
+    ``att_bwd`` among them."""
+    from chip_smoke import k34_inputs
+    from portbench.train import K34_KERNELS
+    from tacotron2_vae_torch.ops import teacher_fwd as tf
+
+    hp = create_hparams(ODD)
+    model = init_weights(Tacotron2(hp), torch.Generator().manual_seed(0))
+    dec = model.to(cuda_device).eval().requires_grad_(False).decoder
+    w, pn, mem, pm, add, masks, dys = k34_inputs(dec, 64, 70, 21, None, torch.bfloat16, True,
+                                                 cuda_device)
+    ys, res = tf.teacher_fwd(w, pn, mem, pm, add, masks)
+    w_cum_prev = torch.cat([torch.zeros_like(ys[2][:1]), torch.cumsum(ys[2], 0)[:-1]])
+    args = (w, mem, pm, masks, dys, ys, res, w_cum_prev.contiguous())
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    old, steps = tf.USE_GRAPH, tf.teacher_bwd.coef_steps
+    tf.USE_GRAPH = False
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            tf.teacher_bwd(*args)
+            torch.cuda.synchronize()
+    finally:
+        tf.USE_GRAPH = old
+    # kernel by kernel, K4 counts its coefficient launches too
+    assert tf.teacher_bwd.coef_steps - steps == 21
+    # less the wrapper's own zero fills and copies (PyTorch's kernels)
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and "at::" not in e.key
+             and not e.key.startswith(("Memset", "Memcpy"))}
+    assert names, "the profiler saw no kernel"
+    assert all(K34_KERNELS.search(n) for n in names), sorted(names)
+    phases = {n for n in names if "att_bwd<" in n}
+    assert len(phases) == 3, sorted(names)
+
+
 @pytest.mark.cuda
 def test_weight_grad_float16_product_keeps_float32_sums(cuda_device):
     from tacotron2_vae_torch.models.decoder_bptt import weight_grad
@@ -459,10 +609,12 @@ def test_kernels_refuse_an_unknown_dtype_code_on_card(cuda_device, entry):
         counts = (ctypes.c_int * 2)()
         err = fn(*ints, *([null] * 18), 4, ctypes.c_float(0.5), 0, 0, 1, 1, counts, null,
                  null, null)
-    else:
-        fn = tf._fn(entry, f"t2v_{entry}", 11, 31 if entry == "teacher_fwd" else 45)
-        err = fn(code, 3, 1, 16, 64, 64, 32, 32, 8, 31, 0,
-                 *([null] * (31 if entry == "teacher_fwd" else 45)))
+    elif entry == "teacher_fwd":
+        fn = tf._fn(entry, f"t2v_{entry}", 11, 31)
+        err = fn(code, 3, 1, 16, 64, 64, 32, 32, 8, 31, 0, *([null] * 31))
+    else:  # K4 takes the chunk length C after K, and its count's pointer
+        fn = tf._fn(entry, f"t2v_{entry}", 12, 46)
+        err = fn(code, 3, 1, 16, 64, 64, 32, 32, 8, 31, 3, 0, *([null] * 46))
     assert err == 1
 
 

@@ -24,6 +24,7 @@ from tacotron2_vae_torch.models import vae_gst as tvae
 from tacotron2_vae_torch.ops import encoder_lstm as el
 from tacotron2_vae_torch.ops import layers as tl
 from tacotron2_vae_torch.ops import rnn as tr
+from tacotron2_vae_torch.ops import teacher_fwd as tf
 
 ATOL = 1e-5
 
@@ -241,3 +242,149 @@ def test_postnet(setup, dtype):
                           dtype=None if dtype is None else jnp.bfloat16)
     got = model.postnet(t(mel), dtype=None if dtype is None else torch.bfloat16)
     _close(jnp.asarray(want, jnp.float32), got, None if dtype is None else BF16)
+
+
+def factored_bwd(w, memory, pmem, masks, dys, ys, resids, w_cum_prev, chunk=None):
+    """The recurrence backward of ``teacher_bwd_plain`` in K4's order, in
+    plain PyTorch: the steps in chunks of ``chunk`` (default ``bwd_chunk``
+    of the shapes) from the last, and for each chunk
+      coefficients, every step of it: loc and ta as the forward has them,
+        G = v (1 - ta^2), M = G . loc_dense^T, N[p, k, c] = sum_f M[p, f]
+        loc_w[k, c, f];
+      the chain, each step in reverse time: the two LSTM backwards as
+        ``teacher_bwd_plain``, and between them dw, de, dq = G^T de and the
+        location carries through the taps of N, all linear in de;
+      accumulation, each step in reverse time: dloc = de M, dpmem += de G,
+        dv += de ta, dWld += loc^T (de G)."""
+    dh_dec_seq, dctx_seq, dw_seq = dys
+    w_seq = ys[2]
+    g_att_seq, g_dec_seq, c_att_prev, c_dec_prev, h_att_seq = resids
+    T, B, S, E, H, P, sdt, wa, wd, z = tf._bwd_setup(w, memory, ys)
+    v, ldw, qw, lw = w["v"], w["loc_dense_w"], w["query_w"], w["loc_w"]
+    K = lw.shape[0]
+    pad = (K - 1) // 2
+    C = chunk or tf.bwd_chunk(T, B, S, H, qw.shape[1], ldw.shape[0], K)
+    dh_att_c, dc_att_c, dh_dec_c, dc_dec_c = z(B, H), z(B, H), z(B, H), z(B, H)
+    dw_prev_c, dwcum_c, dctx_c = z(B, S), z(B, S), z(B, E)
+    dv, dwq, dwld, dpmem = z(*v.shape), z(*qw.shape), z(*ldw.shape), z(B, S, pmem.shape[2])
+    streams = [[None] * T for _ in range(5)]
+    for hi in range(T - 1, -1, -C):
+        steps = range(max(0, hi - C + 1), hi + 1)
+        coef = {}
+        for t in steps:
+            w_prev = w_seq[t - 1] if t else torch.zeros_like(w_seq[0])
+            loc, ta = tf._energy_terms(w, h_att_seq[t], w_prev, w_cum_prev[t], pmem)
+            G = v * (1.0 - ta * ta)
+            M = G @ ldw.t()
+            coef[t] = loc, ta, G, M, torch.einsum("bsf,kcf->bskc", M, lw)
+        des = {}
+        for t in reversed(steps):
+            _, _, G, _, N = coef[t]
+            dg_dec, dx_dec, dc_dec_c = tf._cell_bwd(wd, g_dec_seq[t], c_dec_prev[t],
+                                                    dh_dec_seq[t] + dh_dec_c, dc_dec_c,
+                                                    tf._mask(masks, 2, t),
+                                                    tf._mask(masks, 3, t), H, sdt)
+            dh_att = dx_dec[:, :H] + dh_att_c
+            dctx = dx_dec[:, H:H + E] + dctx_seq[t] + dctx_c
+            dh_dec_c = dx_dec[:, H + E:]
+
+            wt = w_seq[t]
+            dw = dw_seq[t] + dw_prev_c + dwcum_c + torch.bmm(memory, dctx[:, :, None])[..., 0]
+            de = wt * (dw - (dw * wt).sum(1, keepdim=True))
+            dq = torch.einsum("bs,bsa->ba", de, G)
+            dh_att = dh_att + dq @ qw.t()
+            dwq = dwq + h_att_seq[t].t() @ dq
+            # dfeat[q] = sum_k de[q + pad - k] N[q + pad - k, k]: source p padded by pad
+            src = torch.nn.functional.pad(de[:, :, None, None] * N, (0, 0, 0, 0, pad, pad))
+            dfeats = sum(src[:, 2 * pad - k:2 * pad - k + S, k] for k in range(K))
+            dw_prev_c, dwcum_c = dfeats[..., 0], dfeats[..., 1] + dwcum_c
+
+            dg_att, dx_att, dc_att_c = tf._cell_bwd(wa, g_att_seq[t], c_att_prev[t], dh_att,
+                                                    dc_att_c, tf._mask(masks, 0, t),
+                                                    tf._mask(masks, 1, t), H, sdt)
+            dctx_c, dh_att_c = dx_att[:, P:P + E], dx_att[:, P + E:]
+            for lst, val in zip(streams[:4], (dg_att, dg_dec, dx_att[:, :P], dctx)):
+                lst[t] = val
+            des[t] = de
+        for t in reversed(steps):
+            loc, ta, G, M, _ = coef[t]
+            de = des[t][:, :, None]
+            dta = de * G
+            streams[4][t] = (de * M).to(sdt)
+            dpmem = dpmem + dta
+            dv = dv + torch.einsum("bsa,bs->a", ta, des[t])
+            dwld = dwld + torch.einsum("bsf,bsa->fa", loc, dta)
+    dg_att, dg_dec, dpn, dctx, dloc = (torch.stack(s) for s in streams)
+    return dg_att, dg_dec, dpn, dctx, dloc, dv, dwq, dwld, dpmem
+
+
+# (B, S, T, chunk, K, memory lengths, dropout): S off the 4-way split of
+# the chain's cluster and off the coefficient chunk, T off C, padded
+# positions; the 31-tap halo past both ends of S (S = 40, and S = 6 with
+# every tap reaching out); C = 1 and the default chunk of the shapes
+FACTORED_CASES = [(3, 13, 7, 3, 5, (13, 9, 4), True), (2, 13, 7, 3, 5, None, False),
+                  (2, 40, 5, None, 31, (40, 23), False), (1, 6, 4, 1, 31, None, True)]
+
+
+@pytest.mark.parametrize("B,S,T,chunk,K,lengths,dropout", FACTORED_CASES,
+                         ids=["S13_T7_C3_masked_dropout", "S13_T7_C3", "S40_K31_default_chunk",
+                              "S6_K31_C1_dropout"])
+def test_factored_attention_backward_matches_plain_and_autograd(B, S, T, chunk, K, lengths,
+                                                                dropout):
+    """K4's order of the recurrence backward in plain PyTorch
+    (``factored_bwd``: coefficients a chunk, the chain linear in de,
+    accumulation) against the step-by-step twin and against autograd
+    through the forward twin, all in float64: every stream and accumulator
+    of the twin, and the gradients of query_w, loc_dense_w, v, loc_w, pmem,
+    the prenet input and memory."""
+    H, E, P, A, Fn = 8, 8, 4, 6, 3
+    g = torch.Generator().manual_seed(S * 100 + T)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, dtype=torch.float64) * scale)
+
+    w = {"attn_w": r(P + E + H, 4 * H, scale=0.3), "attn_b": r(4 * H, scale=0.1),
+         "dec_w": r(2 * H + E, 4 * H, scale=0.3), "dec_b": r(4 * H, scale=0.1),
+         "query_w": r(H, A, scale=0.5), "loc_w": r(K, 2, Fn, scale=0.5),
+         "loc_dense_w": r(Fn, A, scale=0.5), "v": r(A)}
+    pn, mem, pm = r(T, B, P), r(B, S, E, scale=0.5), r(B, S, A, scale=0.5)
+    lens = torch.tensor(lengths or (S,) * B)
+    add = torch.where(torch.arange(S)[None] < lens[:, None], 0.0,
+                      float(np.finfo(np.float32).min)).double()
+    masks = None
+    if dropout:
+        masks = tuple((torch.rand(T, B, H, generator=g, dtype=torch.float64) < 0.9).double() / 0.9
+                      for _ in range(4))
+    dys = (r(T, B, H, scale=0.1), r(T, B, E, scale=0.1), r(T, B, S, scale=0.1))
+    leaves = {k: x.clone().requires_grad_() for k, x in
+              {**w, "prenet_seq": pn, "memory": mem, "pmem": pm}.items()}
+    ys_g, _ = tf.teacher_fwd_plain({k: leaves[k] for k in w}, leaves["prenet_seq"],
+                                   leaves["memory"], leaves["pmem"], add, masks)
+    names = ("query_w", "loc_dense_w", "v", "loc_w", "pmem", "prenet_seq", "memory")
+    auto = dict(zip(names, torch.autograd.grad(sum((y * d).sum() for y, d in zip(ys_g, dys)),
+                                               [leaves[k] for k in names])))
+
+    ys, res = tf.teacher_fwd_plain(w, pn, mem, pm, add, masks)
+    zero = torch.zeros_like(ys[2][:1])
+    w_cum_prev = torch.cat([zero, torch.cumsum(ys[2], 0)[:-1]])
+    args = (w, mem, pm, masks, dys, ys, res, w_cum_prev)
+    plain = tf.teacher_bwd_plain(*args)
+    got = factored_bwd(*args, chunk=chunk)
+
+    def err(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+
+    outs = ("dg_att", "dg_dec", "dpn", "dctx", "dloc", "dv", "dwq", "dwld", "dpmem")
+    for name, a, b in zip(outs, got, plain):
+        assert a.dtype == torch.float64 and a.shape == b.shape, name
+        assert err(a, b) <= 1e-12, (name, err(a, b))
+    _, _, dpn, dctx, dloc, dv, dwq, dwld, dpmem = got
+    pad = (K - 1) // 2
+    w_prev = torch.cat([zero, ys[2][:-1]])
+    feats = torch.nn.functional.pad(torch.stack([w_prev, w_cum_prev], -1), (0, 0, pad, pad))
+    dloc_w = torch.stack([torch.einsum("tbsc,tbsf->cf", feats[:, :, k:k + S], dloc)
+                          for k in range(K)])
+    derived = {"query_w": dwq, "loc_dense_w": dwld, "v": dv, "loc_w": dloc_w, "pmem": dpmem,
+               "prenet_seq": dpn, "memory": torch.einsum("tbs,tbe->bse", ys[2], dctx)}
+    for name in names:
+        assert err(derived[name], auto[name]) <= 1e-10, (name, err(derived[name], auto[name]))

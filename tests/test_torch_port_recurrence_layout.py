@@ -67,6 +67,37 @@ def test_backward_work_sizes_follow_the_argument_order():
                      B * tf.CLUSTER * A, B * tf.CLUSTER * Fn * A, S)
 
 
+def test_ring_alignment_matches_the_backward_kernel():
+    with open(os.path.join(CSRC, "teacher_bwd.cu")) as f:
+        consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", f.read()))
+    assert tf.RING_ALIGN == int(consts["kRingAlign"])
+
+
+def test_backward_ring_sizes_follow_the_ring_order():
+    C, B, S, H, A, Fn, K = 16, 64, 384, 1024, 128, 32, 31
+    # att_query partials, ta, M, N (2K taps), loc, de; each already a
+    # multiple of 64 floats at these widths
+    assert tf.bwd_ring(C, B, S, H, A, Fn, K) == (
+        C * 16 * B * A, C * B * S * A, C * B * S * Fn, C * B * S * 2 * K, C * B * S * Fn,
+        C * B * S)
+    # the odd widths: rounded up to RING_ALIGN
+    sizes = tf.bwd_ring(3, 63, 70, 72, 24, 6, 31)
+    assert all(n % tf.RING_ALIGN == 0 for n in sizes)
+    assert sizes[0] == 3 * 2 * 63 * 24 + 16 and sizes[-1] == 3 * 63 * 70 + 18
+
+
+# (T, S, C): 25.6 MB of coefficients a step at (64, 384) and 8.9 MB at
+# (64, 128) give C 16, the cap; 65.8 MB at S = 1000 gives 8; a step past
+# RING_BYTES / 4 still takes the least chunk, 4; T bounds C
+@pytest.mark.parametrize("T,S,want", [(1344, 384, 16), (512, 128, 16), (1344, 1000, 8),
+                                      (1344, 4000, 4), (5, 384, 5), (2, 128, 2)])
+def test_backward_chunk_adapts_to_the_step_size(T, S, want):
+    C = tf.bwd_chunk(T, 64, S, 1024, 128, 32, 31)
+    assert C == want
+    # graph nodes a reverse step: five on the chain, three a chunk
+    assert C < 3 or 5 + 3 / C <= 6
+
+
 @pytest.mark.parametrize("a,b,want", [(0, 4, 0), (1, 4, 1), (128, 64, 2), (176, 64, 3)])
 def test_cdiv(a, b, want):
     assert tf.cdiv(a, b) == want
