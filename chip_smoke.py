@@ -1458,7 +1458,7 @@ def k9_served(hp, t2, device, tmp):
         warnings.simplefilter("ignore")
         synth.load(ckpt, bigvgan_checkpoint(model, tmp),
                    centroid_filelist=os.path.join(tmp, "no_clips.txt"))
-    if synth.bigvgan is None or synth.waveglow is not None:
+    if synth.bigvgan is None:
         raise AssertionError("Synthesizer.load did not load the BigVGAN checkpoint")
     voc = synth.bigvgan
     n_act = sum(isinstance(m, mbv.Activation1d) for m in voc.modules())
@@ -2412,7 +2412,7 @@ def tp_waveglow_cli(model, hp, device, tmp):
             failures.append("train_waveglow --mesh 2,2 failed")
     if err > WG_TP_STATE_RTOL or not math.isfinite(last["final_loss"]):
         failures.append("train_waveglow: the resumed run left the uninterrupted one")
-    if synth.waveglow is None or wav.shape[0] != WG_MEL_FRAMES * hp.hop_length \
+    if synth.vocoder is None or wav.shape[0] != WG_MEL_FRAMES * hp.hop_length \
             or not row["vocoded_finite"]:
         failures.append("train_waveglow: the export did not vocode")
     return row, failures
@@ -2777,7 +2777,7 @@ def serve_phase(model, hp, device, tmp):
     del synth
     synth = Synthesizer(hp, device=device)
     synth.load(ckpt, wg_path, centroid_filelist=manifest)
-    if synth.waveglow_cfg != wg.cfg or synth.waveglow is None:
+    if synth.vocoder is None or synth.vocoder.module.cfg != wg.cfg:
         raise AssertionError("the WaveGlow pickle was not adopted")
     for dtype in (None, torch.bfloat16):
         synth.vocoder_dtype = dtype

@@ -10,25 +10,22 @@ checkpoint), and interpolation between two centroids.  The decoder loop runs
 as kernel K1 on the card for batches of 1 to 8 rows.
 
 Runs on CUDA unless ``device="cpu"`` is given; without a card it raises.
-``load``'s ``vocoder_path`` names the vocoder, told apart by what the file
-holds: WaveGlow (a self-describing ``{"waveglow", "config"}`` pickle of the
-JAX package's params, or a reference NVIDIA ``.pt``) or BigVGAN (a
-generator checkpoint in its published layout, ``{"generator":
-state_dict}`` with weight norm, and its ``config.json`` beside it or a
-``"config"`` entry); without one, Griffin-Lim.  Each runs on the postnet
-mel (``vocode_prepostnet=True`` for the reference's pre-postnet mel).
-``vocoder_dtype = torch.bfloat16`` runs WaveGlow's WaveNet convolutions
-on bf16 operands (float32 by default); BigVGAN runs in float32 only.
+``load``'s ``vocoder_path`` names a WaveGlow or BigVGAN file, which
+``vocoders.load_vocoder`` tells apart, held in ``vocoder``; without one (or
+with ``vocoder = None``), Griffin-Lim.  It vocodes the postnet mel
+(``vocode_prepostnet=True`` for the reference's pre-postnet mel);
+``vocoder_dtype = torch.bfloat16`` runs WaveGlow's WaveNet convolutions on
+bf16 operands.  The benchmark wraps ``synthesize_batch``,
+``synthesize_mel_batch`` and ``vocode`` on the instance (``synthesize_batch``
+reaches the other two through ``self``), sets ``vocoder_dtype`` and reads
+``bigvgan``.
 
 While ``utils.profiling`` records, a batch's work is in spans:
 ``batch.styles`` (each reference clip's ``style.ref``: wav read, K2, VAE),
 ``mel`` (``mel.text``, then ``Tacotron2.infer``'s ``mel.encoder``,
 ``mel.decode`` and ``mel.postnet``, then ``mel.fetch``, the copies to the
 host), and per item ``vocode`` and ``wav.write``, each with its request id.
-BigVGAN's generator is the span ``vocode.bigvgan``, which carries a CUDA
-event pair around it on a card (placed on the host clock: ``device``,
-``device_ms``) and the padded mel's ``frames``; the counter
-``bigvgan.audio_samples`` sums the samples ``vocode`` returned from it.
+BigVGAN's own span and counter: ``vocoders``.
 
     python -m tacotron2_vae_torch.serving.synthesizer --load_path ckpt.pt \\
         --text "..." [--ref_audio ref.wav | --ratios 1,0,0,0]
@@ -38,7 +35,6 @@ from __future__ import annotations
 
 import argparse
 import glob
-import json
 import os
 import pickle
 import warnings
@@ -48,16 +44,13 @@ import numpy as np
 import torch
 
 from ..config import create_hparams
-from ..convert import (from_bigvgan_checkpoint, from_jax_params, from_jax_waveglow,
-                       from_reference_waveglow, read_torch_checkpoint)
-from ..dsp import TacotronSTFT, griffin_lim, load_wav, save_wav
-from ..dsp.stft import dynamic_range_decompression
-from ..models.bigvgan import BigVGAN, BigVGANConfig
+from ..convert import from_jax_params
+from ..dsp import TacotronSTFT, load_wav, save_wav
 from ..models.tacotron2 import Tacotron2, compute_dtype
-from ..models.waveglow import WaveGlow, WaveGlowConfig
 from ..ops.layers import linear, set_cudnn_flags
 from ..text import text_to_sequence
 from ..utils import profiling
+from . import vocoders
 
 
 class Synthesizer:
@@ -73,15 +66,18 @@ class Synthesizer:
                                  hp.n_mel_channels, hp.sampling_rate, hp.mel_fmin,
                                  hp.mel_fmax, device=self.device)
         self.model = None
-        self.waveglow = None
-        self.waveglow_cfg = WaveGlowConfig(n_mel_channels=hp.n_mel_channels)
-        self.bigvgan = None
+        self.vocoder = None
         self.vocoder_dtype = None
         self.centroids_loaded = False
         self._gen = torch.Generator().manual_seed(hp.seed)
 
     def _seed(self) -> int:
         return int(torch.randint(0, 2 ** 31 - 1, (), generator=self._gen))
+
+    @property
+    def bigvgan(self):
+        """The loaded BigVGAN generator module, or None."""
+        return self.vocoder.module if isinstance(self.vocoder, vocoders.BigVGAN) else None
 
     # ------------------------------------------------------------------
 
@@ -93,34 +89,17 @@ class Synthesizer:
 
     def load(self, checkpoint_path: str, vocoder_path: str | None = None,
              centroid_filelist: str | None = None):
-        """Load model weights, a vocoder (optional: WaveGlow or BigVGAN, see
-        the module note) and per-emotion centroids.  The checkpoint is a
-        pickle of the JAX package's numpy params (``{"params",
-        "model_state"}``, as ``tools/convert_torch_ckpt.py`` writes) or a
-        reference torch checkpoint (a state_dict, or a dict holding one
-        under ``"state_dict"``).  A WaveGlow pickle's own config wins over
-        ``waveglow_cfg``."""
+        """Load model weights, a vocoder (optional: ``vocoders.load_vocoder``)
+        and per-emotion centroids.  The checkpoint is a pickle of the JAX
+        package's numpy params (``{"params", "model_state"}``, as
+        ``tools/convert_torch_ckpt.py`` writes) or a reference torch
+        checkpoint (a state_dict, or a dict holding one under
+        ``"state_dict"``)."""
         model = Tacotron2(self.hparams)
         model.load_state_dict(_load_state_dict(checkpoint_path, self.hparams))
         self.model = model.to(self.device).eval().requires_grad_(False)
-        self.waveglow = self.bigvgan = None
-        if vocoder_path:
-            kind, sd, cfg = _load_vocoder(vocoder_path)
-            if kind == "bigvgan":
-                hp = self.hparams
-                if (cfg.num_mels, cfg.hop_size) != (hp.n_mel_channels, hp.hop_length):
-                    raise ValueError(f"BigVGAN takes {cfg.num_mels} mels at hop {cfg.hop_size}; "
-                                     f"the model makes {hp.n_mel_channels} at hop "
-                                     f"{hp.hop_length}")
-                voc = BigVGAN(cfg)
-                voc.load_state_dict(sd)
-                self.bigvgan = voc.to(self.device).eval().requires_grad_(False)
-            else:
-                self.waveglow_cfg = cfg or self.waveglow_cfg
-                wg = WaveGlow(self.waveglow_cfg)
-                wg.load_state_dict(sd)
-                self.waveglow = wg.to(self.device).eval().requires_grad_(False)
-                self._waveglow_w_inv = self.waveglow.inverse_weights()
+        self.vocoder = (vocoders.load_vocoder(vocoder_path, self.hparams, self.device)
+                        if vocoder_path else None)
         if centroid_filelist is None:
             centroid_filelist = os.path.join(
                 "web", "static", "uploads", "koemo_spk_emo_all_test.txt")
@@ -339,49 +318,10 @@ class Synthesizer:
 
     @torch.no_grad()
     def vocode(self, mel: np.ndarray, sigma: float = 0.666) -> np.ndarray:
-        """mel (1, n_mel, T) -> waveform by WaveGlow or BigVGAN, or by
-        Griffin-Lim (30 iterations) when no vocoder is loaded.
-
-        A vocoder gets the mel padded with log-silence to a multiple of
-        ``mel_bucket_size`` frames (as the JAX package pads it), WaveGlow
-        noise from a device generator seeded from the Synthesizer's
-        (BigVGAN is deterministic and draws none); the audio is trimmed to
-        T * hop_length samples."""
-        hp = self.hparams
-        if self.waveglow is not None or self.bigvgan is not None:
-            T = mel.shape[2]
-            bucket = max(hp.mel_bucket_size, 1)
-            mel_p = torch.from_numpy(np.pad(
-                np.asarray(mel, np.float32), ((0, 0), (0, 0), (0, -(-T // bucket) * bucket - T)),
-                constant_values=np.log(1e-5))).to(self.device)
-            if self.bigvgan is not None:
-                if self.vocoder_dtype not in (None, torch.float32):
-                    raise ValueError(f"BigVGAN runs in float32, not {self.vocoder_dtype}")
-                with profiling.span("vocode.bigvgan"):
-                    events = None
-                    if profiling.recording() and mel_p.is_cuda:
-                        events = (torch.cuda.Event(enable_timing=True),
-                                  torch.cuda.Event(enable_timing=True))
-                        events[0].record()
-                    wav = self.bigvgan(mel_p)
-                    if events is not None:
-                        events[1].record()
-                        profiling.annotate(device_events=events)
-                    profiling.annotate(frames=int(mel_p.shape[2]))
-                profiling.count("bigvgan.audio_samples", T * hp.hop_length)
-            else:
-                gen = torch.Generator(device=self.device).manual_seed(self._seed())
-                wav = self.waveglow.infer(mel_p, sigma, gen, self.vocoder_dtype,
-                                          self._waveglow_w_inv)
-            return wav[0, :T * hp.hop_length].cpu().numpy()
-        mel_lin = dynamic_range_decompression(
-            torch.as_tensor(mel, device=self.device))[0]
-        fb = self.stft.mel_basis
-        mag = torch.clamp(torch.linalg.pinv(fb) @ mel_lin, min=0.0)
-        gen = torch.Generator(device=self.device).manual_seed(self._seed())
-        wav = griffin_lim(mag[None], hp.filter_length, hp.hop_length, hp.win_length,
-                          n_iters=30, generator=gen)
-        return wav[0].cpu().numpy()
+        """mel (1, n_mel, T) -> waveform by the loaded vocoder, or by
+        Griffin-Lim when none is loaded (``vocoders``)."""
+        vocoder = self.vocoder or vocoders.GriffinLim(self.stft, self.hparams)
+        return vocoder(mel, self._seed, sigma, self.vocoder_dtype)
 
     def synthesize(self, text: str, path: str, condition_on_ref: bool,
                    ref_audio: str | None, ratios: Sequence[float] | None,
@@ -420,33 +360,6 @@ def _load_state_dict(path: str, hp) -> dict:
         return from_jax_params(blob["params"], blob["model_state"], hp)
     blob = torch.load(path, map_location="cpu", weights_only=False)
     return blob.get("state_dict", blob)
-
-
-def _load_vocoder(path: str):
-    """("waveglow" or "bigvgan", state_dict, config or None) by what the file
-    holds.  A pickle holds the JAX package's WaveGlow params under
-    ``"waveglow"`` (float16 storage is cast to float32) and may carry its
-    config under ``"config"``.  A torch checkpoint holding ``"generator"``
-    is BigVGAN's, whose config is its ``"config"`` entry or the
-    ``config.json`` beside it (as BigVGAN's own inference script reads it);
-    any other is read as a reference NVIDIA WaveGlow checkpoint."""
-    if path.endswith((".pkl", ".pickle")):
-        with open(path, "rb") as f:
-            blob = pickle.load(f)
-        cfg = WaveGlowConfig(**blob["config"]) if "config" in blob else None
-        return "waveglow", from_jax_waveglow(blob["waveglow"]), cfg
-    blob = read_torch_checkpoint(path)
-    if isinstance(blob, dict) and "generator" in blob:
-        cfg = blob.get("config")
-        if cfg is None:
-            cfg_path = os.path.join(os.path.dirname(os.path.abspath(path)), "config.json")
-            if not os.path.exists(cfg_path):
-                raise ValueError(f"the BigVGAN checkpoint {path!r} has no config: put its "
-                                 f"config.json beside it")
-            with open(cfg_path, encoding="utf-8") as f:
-                cfg = json.load(f)
-        return "bigvgan", from_bigvgan_checkpoint(blob), BigVGANConfig.from_dict(cfg)
-    return "waveglow", from_reference_waveglow(blob), None
 
 
 def _str2bool(v) -> bool:

@@ -458,12 +458,12 @@ def _eval_vocoder(synth, wav_path: str) -> str:
         return float(np.mean(np.abs(m[:, :, :k] - mel_t[:, :, :k])))
 
     wav_wg = synth.vocode(mel_t)
-    saved_wg = synth.waveglow
+    saved = synth.vocoder
     try:
-        synth.waveglow = None  # the Griffin-Lim path
+        synth.vocoder = None  # the Griffin-Lim path
         wav_gl = synth.vocode(mel_t)
     finally:
-        synth.waveglow = saved_wg
+        synth.vocoder = saved
     err_wg, err_gl = roundtrip(wav_wg), roundtrip(wav_gl)
     return (
         f"\nCopy synthesis on a held-out validation mel (vocode the ground-truth "

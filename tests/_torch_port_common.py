@@ -5,12 +5,18 @@ Both sides get the same weights: the JAX package initialises them, and
 modules.  Inputs are made with numpy from a seed and handed to both.
 JAX is imported inside ``build`` only, so the tests of the kernels on the
 card (``test_torch_port_cuda.py``) can use this module where JAX is absent.
+
+Every ``tests/test_torch_*.py`` imports ``one_thread``, an autouse fixture:
+its tests run on one intra-op thread, and the processes they start (CLI
+children, torchrun ranks; ``child_env``) on one OpenMP / MKL thread, so
+the suite's parallel workers do not oversubscribe the cores.
 """
 
 import importlib.util
 import os
 
 import numpy as np
+import pytest
 import torch
 
 from tacotron2_vae_torch import convert
@@ -80,6 +86,35 @@ def log_mel_float64(wav, n_fft, hop=256, n_mels=80, sampling_rate=16000, fmin=0.
 
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ONE_THREAD_ENV = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the module's tests (the fastest at tiny
+    widths), and ``ONE_THREAD_ENV`` for every process they start; both
+    restored after the module."""
+    n = torch.get_num_threads()
+    saved = {k: os.environ.get(k) for k in ONE_THREAD_ENV}
+    torch.set_num_threads(1)
+    os.environ.update(ONE_THREAD_ENV)
+    yield
+    torch.set_num_threads(n)
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+def child_env(**extra) -> dict:
+    """The environment of a process a port test starts: the checkout on
+    ``PYTHONPATH``, ``ONE_THREAD_ENV``, and none of the parent's torchrun or
+    XLA settings."""
+    env = dict(os.environ, PYTHONPATH=ROOT, **ONE_THREAD_ENV, **extra)
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT", "XLA_FLAGS"):
+        env.pop(k, None)
+    return env
 
 
 def load_jax_tool(name: str):

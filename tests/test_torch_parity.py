@@ -26,6 +26,7 @@ import sys, os
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools"))
 from convert_torch_ckpt import convert_tacotron2
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 
 HP = create_hparams(
     "symbols_embedding_dim=32,encoder_embedding_dim=32,"

@@ -14,7 +14,10 @@ the twin at lengths around a tile's end; the weight-norm fold
 against ``torch.nn.utils.weight_norm``; ``Synthesizer.load`` telling a
 BigVGAN checkpoint from a WaveGlow pickle; one ``POST /api`` and one
 ``GET /generate`` through ``app.make_server`` whose wav bytes are the
-reference's on the mel the app vocoded.  Tests marked ``cuda`` hold K9 to
+reference's on the mel the app vocoded; the Synthesizer's vocoder seam
+(``serving/vocoders.py``) for WaveGlow, BigVGAN and Griffin-Lim: what the
+benchmark wraps and reads, the seeds each vocoder draws and the bytes it
+writes, and no BigVGAN import until one is loaded.  Tests marked ``cuda`` hold K9 to
 its twin on the card at the six stage widths of a 9.6 s request; they
 import no JAX, so they run there with ``python -m pytest --noconftest``.
 """
@@ -24,7 +27,10 @@ import io
 import json
 import math
 import os
+import pickle
 import re
+import subprocess
+import sys
 import threading
 import urllib.request
 from urllib.parse import quote
@@ -35,14 +41,20 @@ import torch
 from scipy.io import wavfile
 
 import _plain_bigvgan as ref
+from _torch_port_common import child_env
 from tacotron2_vae_torch import convert
 from tacotron2_vae_torch.config import create_hparams
+from tacotron2_vae_torch.dsp import griffin_lim, save_wav
+from tacotron2_vae_torch.dsp.stft import dynamic_range_decompression
+from tacotron2_vae_torch.models import waveglow as wg_model
 from tacotron2_vae_torch.models.bigvgan import BigVGAN, BigVGANConfig, kaiser_sinc_filter1d
 from tacotron2_vae_torch.models.tacotron2 import Tacotron2, init_weights
 from tacotron2_vae_torch.ops import aa_snake as k9
 from tacotron2_vae_torch.serving import app as app_mod
+from tacotron2_vae_torch.serving import vocoders
 from tacotron2_vae_torch.serving.synthesizer import Synthesizer
 from tacotron2_vae_torch.utils import profiling
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = ("symbols_embedding_dim=64,encoder_embedding_dim=64,attention_rnn_dim=64,"
@@ -277,7 +289,7 @@ def served(tmp_path_factory):
 
 def test_load_tells_the_vocoders_apart(served, tmp_path):
     tmp, s, blob, ckpt = served
-    assert s.bigvgan is not None and s.waveglow is None
+    assert s.bigvgan is s.vocoder.module and isinstance(s.vocoder, vocoders.BigVGAN)
     assert s.bigvgan.cfg == BigVGANConfig.from_dict(APP_BV)
     # the config inside the checkpoint serves as well as the file beside it
     torch.save(dict(blob, config=APP_BV), tmp_path / "with_config.pt")
@@ -360,6 +372,149 @@ def test_app_serves_bigvgan_wavs(served, tmp_path, monkeypatch):
         assert sr == 16000 and got.dtype == np.int16 and got.shape == want.shape
         assert np.abs(got.astype(np.int32) - want).max() <= 1
         assert 0.01 < float(np.abs(got).max()) / 32767.0
+
+
+@pytest.fixture(scope="module")
+def vocoder_paths(served):
+    """``Synthesizer.load``'s ``vocoder_path`` of each vocoder: the app's
+    BigVGAN, a tiny WaveGlow pickle as ``tools/train_waveglow.py --export``
+    writes it (its ``end`` random, so the couplings are not the identity),
+    and none for Griffin-Lim."""
+    tmp = served[0]
+    cfg = wg_model.WaveGlowConfig(n_flows=4, n_group=8, n_early_every=2, n_early_size=2,
+                                  n_layers=2, n_channels=8)
+    wg = wg_model.init_weights(wg_model.WaveGlow(cfg), torch.Generator().manual_seed(5),
+                               end_scale=0.05)
+    path = tmp / "waveglow.pkl"
+    with open(path, "wb") as f:
+        pickle.dump({"waveglow": convert.to_jax_waveglow(wg.state_dict()),
+                     "config": dict(cfg.__dict__)}, f)
+    return {"waveglow": str(path), "bigvgan": str(tmp / "bigvgan" / "g_00000000"),
+            "griffin_lim": None}
+
+
+def _loaded(served, vocoder_path):
+    tmp, _, _, ckpt = served
+    s = Synthesizer(create_hparams(TINY), device="cpu")
+    with pytest.warns(UserWarning, match="not found"):
+        s.load(str(ckpt), vocoder_path, centroid_filelist=str(tmp / "missing.txt"))
+    s.hparams = s.hparams.replace(max_decoder_steps=12)
+    return s
+
+
+def _requests(tmp_path, name, n):
+    return [("하나둘.", str(tmp_path / f"{name}{i}.wav"), False, None, [1, 0, 0, 0])
+            for i in range(n)]
+
+
+def test_benchmark_contract_with_the_synthesizer(served, vocoder_paths, tmp_path,
+                                                 monkeypatch):
+    """What the benchmark (``portbench/``) relies on.
+    - Wrapping ``synthesize_mel_batch`` and ``vocode`` on the instance sees
+      every call ``synthesize_batch`` makes (``serve.py``'s ``Recorder``,
+      which wraps ``synthesize_batch`` too; ``control.py``'s
+      ``alter_answer``).
+    - ``bigvgan`` is the loaded BigVGAN generator and None after a WaveGlow
+      or no vocoder (``serve_bigvgan.py``; ``control_bigvgan.py``'s
+      ``no_antialias`` patches its modules).
+    - ``vocoder_dtype`` reaches WaveGlow's ``infer`` (``serve.py`` sets it;
+      ``control.py``'s ``control_vocoder_bf16``).
+    - BigVGAN refuses a bfloat16 ``vocoder_dtype`` (``serve_bigvgan.py``
+      serves float32 alone)."""
+    for kind in ("waveglow", "bigvgan"):
+        s = _loaded(served, vocoder_paths[kind])
+        calls = []
+        inner_mel, inner_voc = s.synthesize_mel_batch, s.vocode
+
+        def mel_batch(texts, styles, inner=inner_mel, calls=calls):
+            calls.append("mel")
+            return inner(texts, styles)
+
+        def vocode(mel, *args, inner=inner_voc, calls=calls, **kwargs):
+            calls.append("vocode")
+            return inner(mel, *args, **kwargs)
+        monkeypatch.setattr(s, "synthesize_mel_batch", mel_batch)
+        monkeypatch.setattr(s, "vocode", vocode)
+        s.synthesize_batch(_requests(tmp_path, kind, 2))
+        assert calls == ["mel", "vocode", "vocode"], kind
+    bv, wg = _loaded(served, vocoder_paths["bigvgan"]), _loaded(served, vocoder_paths["waveglow"])
+    assert isinstance(bv.bigvgan, BigVGAN) and bv.bigvgan is bv.vocoder.module
+    assert wg.bigvgan is None and _loaded(served, None).bigvgan is None
+    dtypes = []
+    inner_infer = wg.vocoder.module.infer
+
+    def infer(mel, sigma, generator, dtype, w_inv):
+        dtypes.append(dtype)
+        return inner_infer(mel, sigma, generator, dtype, w_inv)
+    monkeypatch.setattr(wg.vocoder.module, "infer", infer)
+    mel = mel_input(7, B=1, T=10).numpy()
+    wg.vocoder_dtype = torch.bfloat16
+    assert np.isfinite(wg.vocode(mel)).all()
+    assert dtypes == [torch.bfloat16]
+    bv.vocoder_dtype = torch.bfloat16
+    with pytest.raises(ValueError, match="float32"):
+        bv.vocode(mel)
+
+
+@pytest.mark.parametrize("kind,draws", [("waveglow", 1), ("bigvgan", 0), ("griffin_lim", 1)])
+def test_vocoder_seed_draws_and_wav_bytes(served, vocoder_paths, tmp_path, monkeypatch, kind,
+                                          draws):
+    """``synthesize_batch`` writes the bytes of the vocoder's own generator
+    called on the postnet mel (padded with log-silence to the 64-frame
+    bucket for the neural two) with the seed the Synthesizer's stream gave
+    it; after the decode's seed, BigVGAN draws none from the stream,
+    WaveGlow and Griffin-Lim one."""
+    s = _loaded(served, vocoder_paths[kind])
+    seeds, mels = [], []
+    inner_seed, inner_mel = s._seed, s.synthesize_mel_batch
+
+    def seed():
+        seeds.append(inner_seed())
+        return seeds[-1]
+
+    def mel_batch(texts, styles):
+        items = inner_mel(texts, styles)
+        mels.extend(item[1] for item in items)
+        return items
+    monkeypatch.setattr(s, "_seed", seed)
+    monkeypatch.setattr(s, "synthesize_mel_batch", mel_batch)
+    (path,) = s.synthesize_batch(_requests(tmp_path, kind, 1))
+    assert len(seeds) == 1 + draws
+    (mel,) = mels
+    T, hp = mel.shape[2], s.hparams
+    padded = torch.from_numpy(np.pad(mel, ((0, 0), (0, 0), (0, -(-T // 64) * 64 - T)),
+                                     constant_values=np.log(1e-5)))
+    with torch.no_grad():
+        if kind == "bigvgan":
+            wav = s.vocoder.module(padded)[0, :T * 256]
+        elif kind == "waveglow":
+            gen = torch.Generator().manual_seed(seeds[1])
+            wav = s.vocoder.module.infer(padded, 0.666, gen)[0, :T * 256]
+        else:
+            fb = s.stft.mel_basis
+            mag = torch.clamp(torch.linalg.pinv(fb) @ dynamic_range_decompression(
+                torch.from_numpy(mel))[0], min=0.0)
+            wav = griffin_lim(mag[None], hp.filter_length, hp.hop_length, hp.win_length,
+                              n_iters=30, generator=torch.Generator().manual_seed(seeds[1]))[0]
+    assert float(wav.abs().max()) > 1e-3
+    save_wav(str(tmp_path / "want.wav"), wav.numpy(), hp.sampling_rate)
+    with open(path, "rb") as got, open(tmp_path / "want.wav", "rb") as want:
+        assert got.read() == want.read()
+
+
+def test_serving_imports_no_bigvgan_for_a_waveglow(vocoder_paths):
+    """Importing the app and loading a WaveGlow import neither BigVGAN's
+    module nor kernel K9's wrapper."""
+    code = ("import sys\n"
+            "from tacotron2_vae_torch.config import create_hparams\n"
+            "from tacotron2_vae_torch.serving import app, vocoders\n"
+            "v = vocoders.load_vocoder(sys.argv[1], create_hparams(), 'cpu')\n"
+            "assert isinstance(v, vocoders.WaveGlow), v\n"
+            "bad = [m for m in sys.modules if m.endswith(('.bigvgan', '.aa_snake'))]\n"
+            "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code, vocoder_paths["waveglow"]], cwd=ROOT,
+                         env=child_env(), capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 @pytest.fixture()

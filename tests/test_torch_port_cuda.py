@@ -68,6 +68,7 @@ import pytest
 import torch
 
 from _torch_port_common import TINY, log_mel_float64, n
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 from chip_smoke import k1_compare, k34_check, k78_check, k78_encoder_launches
 from tacotron2_vae_torch.config import create_hparams
 from tacotron2_vae_torch.models import waveglow as twg

@@ -28,6 +28,7 @@ from tacotron2_vae_tpu.training import train as jtr
 from tacotron2_vae_torch.config import create_hparams
 from tacotron2_vae_torch.data import dataset as ds
 from tacotron2_vae_torch.training import train as tr
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 
 TEXTS = ["안녕하세요.", "감사합니다, 또 만나요.", "반갑습니다.",
          "오늘은 날씨가 참 좋네요.", "내일 다시 만나요.", "네."]

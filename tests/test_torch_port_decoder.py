@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from _torch_port_common import build, n, t
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 from tacotron2_vae_tpu.models import decoder as jdec
 from tacotron2_vae_tpu.models import tacotron2 as jt2
 from tacotron2_vae_tpu.ops.layers import linear as jlinear

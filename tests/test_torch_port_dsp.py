@@ -14,6 +14,7 @@ import torch
 
 import tacotron2_vae_tpu.ops.pallas.stft_mel as jsm
 from _torch_port_common import n, t
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 from tacotron2_vae_tpu.dsp import TacotronSTFT as JaxSTFT
 from tacotron2_vae_tpu.dsp import invert as jinv
 from tacotron2_vae_tpu.text import text_to_sequence as jax_text_to_sequence

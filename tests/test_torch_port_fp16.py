@@ -47,6 +47,7 @@ import pytest
 import torch
 
 from _torch_port_common import TINY, build, n, t
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 from test_torch_port_decoder import _inputs
 from test_torch_port_train_loop import _batch as _loop_batch
 from test_torch_port_train_loop import _state_snapshot, _write_corpus

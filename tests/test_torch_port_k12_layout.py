@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from _torch_port_common import log_mel_float64
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 from tacotron2_vae_torch.dsp.mel import mel_filterbank
 from tacotron2_vae_torch.dsp.stft import _tables, mel_bands
 from tacotron2_vae_torch.ops import decoder_loop as dl

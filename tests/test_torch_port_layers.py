@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from _torch_port_common import build, n, t
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 from tacotron2_vae_tpu.models import encoder as jenc
 from tacotron2_vae_tpu.models import postnet as jpost
 from tacotron2_vae_tpu.models import vae_gst as jvae

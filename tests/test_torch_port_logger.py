@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from _torch_port_common import build
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 from tacotron2_vae_tpu.training import logger as jlog
 from tacotron2_vae_tpu.utils import plotting as jplot
 from tacotron2_vae_torch.models.tacotron2 import Tacotron2Output

@@ -15,6 +15,7 @@ from scipy.io import wavfile
 
 from tacotron2_vae_torch.data import native
 from tacotron2_vae_tpu.data import native as jnative
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -36,16 +36,11 @@ import torch
 from tacotron2_vae_torch import convert
 from tacotron2_vae_torch.config import create_hparams
 from tacotron2_vae_torch.tools import multihost_dryrun as mh
+from _torch_port_common import child_env
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 120
-
-
-def _env():
-    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
-    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT", "XLA_FLAGS"):
-        env.pop(k, None)
-    return env
 
 
 def _batch(path, B=4, S=12, T=32, seed=0):
@@ -65,7 +60,7 @@ def _batch(path, B=4, S=12, T=32, seed=0):
 def _ranks(target, args, n=2):
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={n}", *target, *args]
-    out = subprocess.run(cmd, cwd=ROOT, env=_env(), capture_output=True, text=True,
+    out = subprocess.run(cmd, cwd=ROOT, env=child_env(), capture_output=True, text=True,
                          timeout=TIMEOUT)
     assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
     assert out.stdout.count("DRYRUN ") == n, out.stdout
@@ -80,7 +75,7 @@ def _run_batch(tmp, args, n, script=None):
             *args]
     target = [script] if script else ["-m", "tacotron2_vae_torch.tools.multihost_dryrun"]
     if n == 1:
-        out = subprocess.run([sys.executable, *target, *full], cwd=ROOT, env=_env(),
+        out = subprocess.run([sys.executable, *target, *full], cwd=ROOT, env=child_env(),
                              capture_output=True, text=True, timeout=TIMEOUT)
         assert out.returncode == 0, out.stderr[-3000:]
     else:

@@ -12,6 +12,7 @@ import threading
 import time
 
 import pytest
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 
 pf = importlib.import_module("tacotron2_vae_torch.data.prefetch")
 jpf = importlib.import_module("tacotron2_vae_tpu.data.prefetch")

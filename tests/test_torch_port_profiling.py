@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from _torch_port_common import TINY
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 from tacotron2_vae_torch.config import create_hparams
 from tacotron2_vae_torch.training import train as tr
 from tacotron2_vae_torch.training.train_state import create_train_state, make_train_step

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from tacotron2_vae_torch.ops import teacher_fwd as tf
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 
 CSRC = os.path.join(os.path.dirname(tf.__file__), os.pardir, "csrc")
 HEADER = os.path.join(CSRC, "teacher_common.cuh")

@@ -22,6 +22,7 @@ import torch
 from scipy.io import wavfile
 
 from _torch_port_common import TINY
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 from tacotron2_vae_tpu.config import create_hparams as jax_hparams
 from tacotron2_vae_tpu.data import dataset as jds
 from tacotron2_vae_torch.config import create_hparams

@@ -22,6 +22,7 @@ import torch
 
 from tacotron2_vae_torch.ops import reshape_probe as rp
 from tacotron2_vae_torch.tools import reshape_probe as port_probe
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROBE_SHAPES = [(128, 128), (128, 32), (128, 256)]

@@ -11,10 +11,12 @@ import pytest
 import torch
 from scipy.io import wavfile
 
-from _torch_port_common import TINY, build, n
+from _torch_port_common import TINY, build, child_env, n
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 from tacotron2_vae_torch import convert
 from tacotron2_vae_torch.models.waveglow import WaveGlowConfig
 from tacotron2_vae_torch.serving import synthesizer as synth_mod
+from tacotron2_vae_torch.serving import vocoders
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                                 "tools"))
@@ -172,8 +174,7 @@ def test_import_leaves_jax_out():
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=child_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
 
@@ -207,10 +208,11 @@ def test_waveglow_pickle_config_wins_and_float16_is_cast(checkpoint):
 
     params = _waveglow_pickle(tmp / "wg16.pkl", np.float16, seed=3)
     synth = synth_mod.Synthesizer(create_hparams(TINY), device="cpu")
-    assert synth.waveglow_cfg == WaveGlowConfig()
+    assert synth.vocoder is None
     synth.load(str(pkl), vocoder_path=str(tmp / "wg16.pkl"), centroid_filelist=str(manifest))
-    assert synth.waveglow_cfg == WaveGlowConfig(**WG_CFG_ARGS)
-    sd = synth.waveglow.state_dict()
+    assert isinstance(synth.vocoder, vocoders.WaveGlow)
+    assert synth.vocoder.module.cfg == WaveGlowConfig(**WG_CFG_ARGS) != WaveGlowConfig()
+    sd = synth.vocoder.module.state_dict()
     assert all(v.dtype == torch.float32 for v in sd.values())
     w = params["flows"][1]["wn"]["in"][1]["w"]  # (k, in, out) float16
     np.testing.assert_array_equal(sd["WN.1.in_layers.1.weight"].numpy(),
@@ -245,7 +247,7 @@ def test_griffin_lim_without_a_vocoder(checkpoint):
 
     synth = synth_mod.Synthesizer(create_hparams(TINY), device="cpu")
     synth.load(str(pkl), centroid_filelist=str(manifest))
-    assert synth.waveglow is None
+    assert synth.vocoder is None and synth.bigvgan is None
     mel = np.full((1, 80, 12), -4.0, np.float32)
     wav = synth.vocode(mel)
     # Griffin-Lim's istft gives (T - 1) hops; WaveGlow gives T

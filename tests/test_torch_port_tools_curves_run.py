@@ -24,21 +24,12 @@ import torch
 from scipy.io import wavfile
 
 from _torch_port_common import ROOT, TINY, load_jax_tool
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 from tacotron2_vae_torch.models.tacotron2 import Tacotron2
 from tacotron2_vae_torch.models.waveglow import WaveGlow, WaveGlowConfig
 from tacotron2_vae_torch.tools import curves_run, train_waveglow
 
 JAX_SOURCE = os.path.join(ROOT, "tools", "curves_run.py")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the fastest at tiny widths, and it keeps the
-    suite's parallel workers from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -21,6 +21,7 @@ import pytest
 from scipy.io import wavfile
 
 from _torch_port_common import TINY, build, load_jax_tool
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 from tacotron2_vae_tpu.config import create_hparams as jax_hparams
 from tacotron2_vae_tpu.models import tacotron2 as jax_tacotron2
 from tacotron2_vae_tpu.serving.synthesizer import Synthesizer as JaxSynthesizer

@@ -20,22 +20,13 @@ import pytest
 import torch
 
 from _torch_port_common import ROOT, TINY, load_jax_tool
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 from tacotron2_vae_tpu.config import create_hparams as jax_hparams
 from tacotron2_vae_torch.config import create_hparams
 from tacotron2_vae_torch.tools import make_result_assets
 from tacotron2_vae_torch.utils import plotting
 
 JAX_SOURCE = os.path.join(ROOT, "tools", "make_result_assets.py")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread: the fastest at tiny widths, and it keeps the
-    suite's parallel workers from oversubscribing the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

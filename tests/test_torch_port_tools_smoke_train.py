@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from _torch_port_common import ROOT, TINY, build, load_jax_tool
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 from tacotron2_vae_tpu.config import create_hparams as jax_hparams
 from tacotron2_vae_tpu.models import tacotron2 as jax_tacotron2
 from tacotron2_vae_torch.config import create_hparams

@@ -33,6 +33,7 @@ import torch
 from scipy.io import wavfile
 
 from _torch_port_common import load_jax_tool
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 from tacotron2_vae_tpu.models import waveglow as jwg
 from tacotron2_vae_torch import convert
 from tacotron2_vae_torch.models.waveglow import WaveGlow, WaveGlowConfig

@@ -47,17 +47,12 @@ from tacotron2_vae_torch import convert
 from tacotron2_vae_torch.config import create_hparams
 from tacotron2_vae_torch.parallel import mesh
 from tacotron2_vae_torch.tools import multihost_dryrun as mh
+from _torch_port_common import child_env
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 120
 DROPOUT = "p_attention_dropout=0.1,p_decoder_dropout=0.1"
-
-
-def _env():
-    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
-    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT", "XLA_FLAGS"):
-        env.pop(k, None)
-    return env
 
 
 def _start(target, args, n):
@@ -66,7 +61,7 @@ def _start(target, args, n):
     cmd = [sys.executable, *target, *args]
     if n > 1:
         cmd[1:1] = ["-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={n}"]
-    return subprocess.Popen(cmd, cwd=ROOT, env=_env(), stdout=subprocess.PIPE,
+    return subprocess.Popen(cmd, cwd=ROOT, env=child_env(), stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
 
 

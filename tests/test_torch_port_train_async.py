@@ -24,6 +24,7 @@ import torch
 from scipy.io import wavfile
 
 from _torch_port_common import TINY
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 from tacotron2_vae_torch.config import create_hparams
 from tacotron2_vae_torch.data import dataset as ds
 from tacotron2_vae_torch.training import train as tr

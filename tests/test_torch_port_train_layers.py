@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from _torch_port_common import TINY, n
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 from tacotron2_vae_torch.config import create_hparams
 from tacotron2_vae_torch.models.tacotron2 import Tacotron2, init_weights
 from tacotron2_vae_torch.ops.layers import batchnorm

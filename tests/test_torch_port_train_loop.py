@@ -28,7 +28,8 @@ import pytest
 import torch
 from scipy.io import wavfile
 
-from _torch_port_common import TINY, build, n
+from _torch_port_common import TINY, build, child_env, n
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 from tacotron2_vae_torch import convert
 from tacotron2_vae_torch.config import create_hparams
 from tacotron2_vae_torch.data import dataset as ds
@@ -188,8 +189,7 @@ def test_import_leaves_jax_out_with_training_modules():
         "assert not bad, bad\n"
         "assert not {'matplotlib', 'tensorboardX'} & set(sys.modules)\n"
     )
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=child_env(),
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
 

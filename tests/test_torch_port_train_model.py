@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from _torch_port_common import build, n, t
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 from tacotron2_vae_torch import convert
 from tacotron2_vae_torch.training.loss import kl_anneal_weight, tacotron2_vae_loss
 from tacotron2_vae_tpu.models import tacotron2 as jt2

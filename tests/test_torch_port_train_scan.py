@@ -26,6 +26,7 @@ import torch
 from tacotron2_vae_tpu.models import decoder_bptt as jb
 from tacotron2_vae_torch.models import decoder_bptt as bp
 from tacotron2_vae_torch.ops import teacher_fwd as tf
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 
 B, S, T, K = 2, 9, 11, 7
 P, H, E, A, F = 8, 16, 24, 12, 4

@@ -18,6 +18,7 @@ import pytest
 from scipy.io import wavfile
 
 from _torch_port_common import TINY
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 from tacotron2_vae_torch import profile_train as pt
 from tacotron2_vae_torch.config import create_hparams
 from tacotron2_vae_torch.tools import train_turns as tt

@@ -35,6 +35,8 @@ import pytest
 import torch
 
 from tacotron2_vae_torch import convert
+from _torch_port_common import child_env
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 120
@@ -42,13 +44,6 @@ CFG = dict(n_mel_channels=80, n_flows=6, n_group=8, n_early_every=2, n_early_siz
            n_layers=2, n_channels=16)
 CLIP, LR, STEPS = 0.5, 1e-4, 2  # LR: the dryrun's Adam
 TINY_CLI = ["--n_flows", "2", "--n_channels", "8", "--n_layers", "1", "--segment", "2048"]
-
-
-def _env(**extra):
-    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1", **extra)
-    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT", "XLA_FLAGS"):
-        env.pop(k, None)
-    return env
 
 
 def _cmd(target, args, n=1):
@@ -59,7 +54,7 @@ def _cmd(target, args, n=1):
 
 
 def _run(target, args, n=1, check=True, **env):
-    out = subprocess.run(_cmd(target, args, n), cwd=ROOT, env=_env(**env),
+    out = subprocess.run(_cmd(target, args, n), cwd=ROOT, env=child_env(**env),
                          capture_output=True, text=True, timeout=TIMEOUT)
     if check:
         assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
@@ -119,7 +114,7 @@ def setup(tmp_path_factory):
                 "--wg-config", json.dumps(CFG), "--clip", str(CLIP),
                 "--mesh-model", str(model), "--out", os.path.join(tmp, f"{key}.pt")]
         target = [split] if split else ["-m", "tacotron2_vae_torch.tools.multihost_dryrun"]
-        procs[key] = subprocess.Popen(_cmd(target, args, data * model), cwd=ROOT, env=_env(),
+        procs[key] = subprocess.Popen(_cmd(target, args, data * model), cwd=ROOT, env=child_env(),
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True)
     for key, proc in procs.items():
@@ -286,7 +281,7 @@ def test_cli_resumes_the_stream_exports_and_both_synthesizers_vocode(corpus, tmp
     ref = JaxSynthesizer(jax_hparams(TINY))
     with pytest.warns(UserWarning, match="Centroid"):
         ref.load(str(ckpt), str(tmp_path / "wg16.pkl"), centroid_filelist=none)
-    assert ours.waveglow_cfg.n_flows == ref.waveglow_cfg.n_flows == 2
+    assert ours.vocoder.module.cfg.n_flows == ref.waveglow_cfg.n_flows == 2
     mel = np.random.RandomState(2).randn(1, 80, 40).astype(np.float32)
     want = ref.vocode(mel, sigma=0.0)
     got = ours.vocode(mel, sigma=0.0)

@@ -35,6 +35,7 @@ from tacotron2_vae_tpu.models import waveglow as jwg
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                                 "tools"))
 from convert_torch_ckpt import convert_waveglow  # noqa: E402
+from _torch_port_common import one_thread  # noqa: F401 (autouse)
 
 CFG_J = jwg.WaveGlowConfig(n_mel_channels=80, n_flows=6, n_group=8, n_early_every=2,
                            n_early_size=2, n_layers=2, n_channels=16,
